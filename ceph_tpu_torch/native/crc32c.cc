@@ -1,0 +1,181 @@
+// Host-side CRC32C (Castagnoli): hardware crc32 instruction when the
+// CPU has SSE4.2, sliced-by-8 tables otherwise.
+//
+// The C++ analog of the reference's crc32c tier (common/crc32c.cc +
+// crc32c_intel_fast_asm.S): same raw-seed semantics (no init/xorout
+// inversions — callers chain seeds).  The SSE4.2 `crc32` instruction
+// computes exactly this polynomial (reflected 0x82F63B78), so the two
+// paths are bit-identical; the instruction path folds 8 bytes/cycle
+// with a 3-cycle latency, so three independent streams are interleaved
+// and recombined with the carry-less-multiply fold (the classic
+// crc32c_intel triplet scheme reduced: here the streams are combined
+// via the zero-advance tables, keeping the code table-driven and
+// portable).  Exposed flat-C for ctypes; the Python side
+// (ceph_tpu_torch.ops.crc32c) falls back to a bytewise loop when this .so
+// is absent.
+
+#include <cstddef>
+#include <cstdint>
+
+#if defined(__SSE4_2__) && (defined(__x86_64__) || defined(__i386__))
+#include <nmmintrin.h>
+#define CEPH_TPU_HW_CRC 1
+#endif
+
+namespace {
+
+constexpr uint32_t kPolyReflected = 0x82F63B78u;  // CRC32C, reflected
+
+struct Tables {
+  uint32_t t[8][256];
+  Tables() {
+    for (int i = 0; i < 256; ++i) {
+      uint32_t c = static_cast<uint32_t>(i);
+      for (int k = 0; k < 8; ++k)
+        c = (c >> 1) ^ ((c & 1) ? kPolyReflected : 0);
+      t[0][i] = c;
+    }
+    for (int i = 0; i < 256; ++i) {
+      uint32_t c = t[0][i];
+      for (int s = 1; s < 8; ++s) {
+        c = (c >> 8) ^ t[0][c & 0xFF];
+        t[s][i] = c;
+      }
+    }
+  }
+};
+
+const Tables kTables;
+
+uint32_t crc32c_sliced8(uint32_t crc, const uint8_t* p, size_t len) {
+  while (len && (reinterpret_cast<uintptr_t>(p) & 7)) {
+    crc = (crc >> 8) ^ kTables.t[0][(crc ^ *p++) & 0xFF];
+    --len;
+  }
+  while (len >= 8) {
+    uint64_t block;
+    __builtin_memcpy(&block, p, 8);
+    block ^= crc;  // little-endian: crc folds into the low 4 bytes
+    crc = kTables.t[7][block & 0xFF] ^
+          kTables.t[6][(block >> 8) & 0xFF] ^
+          kTables.t[5][(block >> 16) & 0xFF] ^
+          kTables.t[4][(block >> 24) & 0xFF] ^
+          kTables.t[3][(block >> 32) & 0xFF] ^
+          kTables.t[2][(block >> 40) & 0xFF] ^
+          kTables.t[1][(block >> 48) & 0xFF] ^
+          kTables.t[0][(block >> 56) & 0xFF];
+    p += 8;
+    len -= 8;
+  }
+  while (len--) crc = (crc >> 8) ^ kTables.t[0][(crc ^ *p++) & 0xFF];
+  return crc;
+}
+
+#ifdef CEPH_TPU_HW_CRC
+
+// 32x32 GF(2) matrix advancing a CRC register over `nbytes` zero bytes
+// (the crc32c_combine algebra): used to recombine the interleaved
+// hardware streams.  Built once per distinct stride at first use.
+struct ZeroAdvance {
+  uint32_t col[32];  // matrix columns: col[i] = M @ e_i
+  explicit ZeroAdvance(size_t nbytes) {
+    // one column at a time: advance the single-bit state over nbytes
+    // zero bytes with the table path (startup cost only)
+    for (int i = 0; i < 32; ++i) {
+      uint32_t s = 1u << i;
+      static const uint8_t kZeros[256] = {0};
+      size_t left = nbytes;
+      while (left) {
+        size_t take = left < sizeof(kZeros) ? left : sizeof(kZeros);
+        s = crc32c_sliced8(s, kZeros, take);
+        left -= take;
+      }
+      col[i] = s;
+    }
+  }
+  uint32_t apply(uint32_t crc) const {
+    uint32_t out = 0;
+    while (crc) {
+      int b = __builtin_ctz(crc);
+      out ^= col[b];
+      crc &= crc - 1;
+    }
+    return out;
+  }
+};
+
+uint32_t crc32c_hw(uint32_t seed, const uint8_t* p, size_t len) {
+  uint64_t crc = seed;
+  while (len && (reinterpret_cast<uintptr_t>(p) & 7)) {
+    crc = _mm_crc32_u8(static_cast<uint32_t>(crc), *p++);
+    --len;
+  }
+  // triplet interleave: three independent crc32 chains hide the
+  // instruction's 3-cycle latency, recombined with zero-advance
+  constexpr size_t kBlock = 1024;          // bytes per stream
+  static const ZeroAdvance kAdv1(kBlock);      // advance by one stream
+  static const ZeroAdvance kAdv2(2 * kBlock);  // advance by two streams
+  while (len >= 3 * kBlock) {
+    const uint64_t* q0 = reinterpret_cast<const uint64_t*>(p);
+    const uint64_t* q1 = reinterpret_cast<const uint64_t*>(p + kBlock);
+    const uint64_t* q2 =
+        reinterpret_cast<const uint64_t*>(p + 2 * kBlock);
+    uint64_t c0 = crc, c1 = 0, c2 = 0;
+    for (size_t i = 0; i < kBlock / 8; ++i) {
+      c0 = _mm_crc32_u64(c0, q0[i]);
+      c1 = _mm_crc32_u64(c1, q1[i]);
+      c2 = _mm_crc32_u64(c2, q2[i]);
+    }
+    crc = kAdv2.apply(static_cast<uint32_t>(c0)) ^
+          kAdv1.apply(static_cast<uint32_t>(c1)) ^
+          static_cast<uint32_t>(c2);
+    p += 3 * kBlock;
+    len -= 3 * kBlock;
+  }
+  while (len >= 8) {
+    uint64_t block;
+    __builtin_memcpy(&block, p, 8);
+    crc = _mm_crc32_u64(crc, block);
+    p += 8;
+    len -= 8;
+  }
+  while (len--) crc = _mm_crc32_u8(static_cast<uint32_t>(crc), *p++);
+  return static_cast<uint32_t>(crc);
+}
+
+bool have_sse42() {
+  return __builtin_cpu_supports("sse4.2");
+}
+
+#endif  // CEPH_TPU_HW_CRC
+
+}  // namespace
+
+extern "C" {
+
+uint32_t ceph_tpu_crc32c(uint32_t seed, const uint8_t* data, size_t len) {
+#ifdef CEPH_TPU_HW_CRC
+  static const bool hw = have_sse42();
+  if (hw) return crc32c_hw(seed, data, len);
+#endif
+  return crc32c_sliced8(seed, data, len);
+}
+
+// 1 = the hardware crc32 instruction path is compiled in and the CPU
+// supports it (observability: perf dump / bench report which tier ran)
+int ceph_tpu_crc32c_hw(void) {
+#ifdef CEPH_TPU_HW_CRC
+  return have_sse42() ? 1 : 0;
+#else
+  return 0;
+#endif
+}
+
+// Batched variant: n buffers of the same length, seeds/out are arrays.
+void ceph_tpu_crc32c_batch(const uint8_t* data, size_t n, size_t len,
+                           const uint32_t* seeds, uint32_t* out) {
+  for (size_t i = 0; i < n; ++i)
+    out[i] = ceph_tpu_crc32c(seeds ? seeds[i] : 0, data + i * len, len);
+}
+
+}  // extern "C"

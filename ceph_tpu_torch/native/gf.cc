@@ -1,0 +1,319 @@
+// Host-side GF(2^8) region arithmetic (poly 0x11d).
+//
+// The C++ analog of the reference's gf-complete/ISA-L region kernels
+// (erasure-code/isa/isa-l/erasure_code/*.asm.s): multiply-accumulate a
+// byte region by a constant via 2x 4-bit nibble tables — the classic
+// pshufb formulation, written so the compiler auto-vectorizes.  Used as
+// the host EC baseline (bench.py vs_baseline) and the small-op fast
+// path where a device dispatch would cost more than it saves.
+
+#include <cstddef>
+#include <cstdint>
+#include <cstring>
+
+namespace {
+
+constexpr unsigned kPoly = 0x11D;
+
+struct GfTables {
+  uint8_t mul[256][256];
+  // nibble tables: lo[c][x & 15] ^ hi[c][x >> 4] == mul[c][x]
+  uint8_t lo[256][16];
+  uint8_t hi[256][16];
+  GfTables() {
+    uint8_t exp[512];
+    int log[256];
+    unsigned x = 1;
+    for (int i = 0; i < 255; ++i) {
+      exp[i] = static_cast<uint8_t>(x);
+      log[x] = i;
+      x <<= 1;
+      if (x & 0x100) x ^= kPoly;
+    }
+    for (int i = 255; i < 510; ++i) exp[i] = exp[i - 255];
+    for (int a = 0; a < 256; ++a) {
+      for (int b = 0; b < 256; ++b)
+        mul[a][b] = (a && b)
+            ? exp[log[a] + log[b]]
+            : 0;
+      for (int n = 0; n < 16; ++n) {
+        lo[a][n] = mul[a][n];
+        hi[a][n] = mul[a][n << 4];
+      }
+    }
+  }
+};
+
+const GfTables kGf;
+
+}  // namespace
+
+extern "C" {
+
+// dst ^= c * src over len bytes (the gf_vect_mad primitive)
+void ceph_tpu_gf_mad(uint8_t c, const uint8_t* src, uint8_t* dst,
+                     size_t len) {
+  const uint8_t* lo = kGf.lo[c];
+  const uint8_t* hi = kGf.hi[c];
+  for (size_t i = 0; i < len; ++i) {
+    uint8_t x = src[i];
+    dst[i] ^= static_cast<uint8_t>(lo[x & 15] ^ hi[x >> 4]);
+  }
+}
+
+// dst = c * src (gf_vect_mul)
+void ceph_tpu_gf_mul_region(uint8_t c, const uint8_t* src, uint8_t* dst,
+                            size_t len) {
+  const uint8_t* lo = kGf.lo[c];
+  const uint8_t* hi = kGf.hi[c];
+  for (size_t i = 0; i < len; ++i) {
+    uint8_t x = src[i];
+    dst[i] = static_cast<uint8_t>(lo[x & 15] ^ hi[x >> 4]);
+  }
+}
+
+// Full matrix encode: parity[m][len] = matrix[m][k] x data[k][len]
+// (ec_encode_data semantics; rows-major contiguous buffers).
+void ceph_tpu_gf_encode(const uint8_t* matrix, size_t rows, size_t k,
+                        const uint8_t* data, uint8_t* parity, size_t len) {
+  memset(parity, 0, rows * len);
+  for (size_t r = 0; r < rows; ++r)
+    for (size_t j = 0; j < k; ++j) {
+      uint8_t c = matrix[r * k + j];
+      if (c) ceph_tpu_gf_mad(c, data + j * len, parity + r * len, len);
+    }
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// AVX2 pshufb encode — the honest ISA-L stand-in for bench baselines.
+// Same algorithm as isa-l's gf_{2..6}vect_dot_prod_avx2 (vpshufb on the
+// two nibble tables, xor-accumulate), with parity accumulators held in
+// registers across the k data rows so data is read once per 32-byte
+// column block and parity written once.
+// ---------------------------------------------------------------------------
+
+#ifdef __AVX2__
+#include <immintrin.h>
+
+extern "C" void ceph_tpu_gf_encode_avx2(const uint8_t* matrix, size_t rows,
+                                        size_t k, const uint8_t* data,
+                                        uint8_t* parity, size_t len) {
+  const __m256i nib = _mm256_set1_epi8(0x0f);
+  const size_t blocks = len / 32;
+  // register budget: 4 accumulators + x/xl/xh + 2 tables
+  constexpr size_t kGroup = 4;
+  // hoisted table vectors for the current row group
+  __m256i tlo[kGroup * 32];  // indexed [r * k + j]
+  __m256i thi[kGroup * 32];
+  for (size_t r0 = 0; r0 < rows; r0 += kGroup) {
+    const size_t rn = (rows - r0 < kGroup) ? rows - r0 : kGroup;
+    for (size_t r = 0; r < rn; ++r)
+      for (size_t j = 0; j < k; ++j) {
+        const uint8_t c = matrix[(r0 + r) * k + j];
+        tlo[r * k + j] = _mm256_broadcastsi128_si256(
+            _mm_loadu_si128(reinterpret_cast<const __m128i*>(kGf.lo[c])));
+        thi[r * k + j] = _mm256_broadcastsi128_si256(
+            _mm_loadu_si128(reinterpret_cast<const __m128i*>(kGf.hi[c])));
+      }
+    for (size_t b = 0; b < blocks; ++b) {
+      __m256i acc[kGroup];
+      for (size_t r = 0; r < rn; ++r) acc[r] = _mm256_setzero_si256();
+      for (size_t j = 0; j < k; ++j) {
+        const __m256i x = _mm256_loadu_si256(
+            reinterpret_cast<const __m256i*>(data + j * len + b * 32));
+        const __m256i xl = _mm256_and_si256(x, nib);
+        const __m256i xh = _mm256_and_si256(_mm256_srli_epi64(x, 4), nib);
+        for (size_t r = 0; r < rn; ++r) {
+          const __m256i p = _mm256_xor_si256(
+              _mm256_shuffle_epi8(tlo[r * k + j], xl),
+              _mm256_shuffle_epi8(thi[r * k + j], xh));
+          acc[r] = _mm256_xor_si256(acc[r], p);
+        }
+      }
+      for (size_t r = 0; r < rn; ++r)
+        _mm256_storeu_si256(
+            reinterpret_cast<__m256i*>(parity + (r0 + r) * len + b * 32),
+            acc[r]);
+    }
+    // scalar tail
+    for (size_t i = blocks * 32; i < len; ++i)
+      for (size_t r = 0; r < rn; ++r) {
+        uint8_t v = 0;
+        for (size_t j = 0; j < k; ++j) {
+          const uint8_t c = matrix[(r0 + r) * k + j];
+          const uint8_t x = data[j * len + i];
+          v ^= static_cast<uint8_t>(kGf.lo[c][x & 15] ^ kGf.hi[c][x >> 4]);
+        }
+        parity[(r0 + r) * len + i] = v;
+      }
+  }
+}
+
+extern "C" int ceph_tpu_gf_has_avx2(void) { return 1; }
+#else
+extern "C" int ceph_tpu_gf_has_avx2(void) { return 0; }
+#endif
+
+namespace {
+
+// parity row = XOR of all k data rows (an all-ones coding row needs
+// no tables: reed_sol's first parity row, r6 P, LRC local layers and
+// plain replication-style XOR codes run at memcpy-class speed)
+void xor_row(size_t k, const uint8_t* data, uint8_t* dst, size_t len) {
+  size_t u = 0;
+  for (; u + 32 <= len; u += 32) {
+    uint64_t a0, a1, a2, a3;
+    memcpy(&a0, data + u, 8);
+    memcpy(&a1, data + u + 8, 8);
+    memcpy(&a2, data + u + 16, 8);
+    memcpy(&a3, data + u + 24, 8);
+    for (size_t j = 1; j < k; ++j) {
+      const uint8_t* src = data + j * len + u;
+      uint64_t c0, c1, c2, c3;
+      memcpy(&c0, src, 8);
+      memcpy(&c1, src + 8, 8);
+      memcpy(&c2, src + 16, 8);
+      memcpy(&c3, src + 24, 8);
+      a0 ^= c0; a1 ^= c1; a2 ^= c2; a3 ^= c3;
+    }
+    memcpy(dst + u, &a0, 8);
+    memcpy(dst + u + 8, &a1, 8);
+    memcpy(dst + u + 16, &a2, 8);
+    memcpy(dst + u + 24, &a3, 8);
+  }
+  for (; u < len; ++u) {
+    uint8_t a = data[u];
+    for (size_t j = 1; j < k; ++j) a ^= data[j * len + u];
+    dst[u] = a;
+  }
+}
+
+bool row_all_ones(const uint8_t* row, size_t k) {
+  for (size_t j = 0; j < k; ++j)
+    if (row[j] != 1) return false;
+  return true;
+}
+
+}  // namespace
+
+// Dispatching entry point: all-ones rows run the XOR fast path;
+// maximal contiguous runs of general rows run the table kernel
+// (contiguity keeps the matrix/parity pointer math trivial).
+extern "C" void ceph_tpu_gf_encode_best(
+    const uint8_t* matrix, size_t rows, size_t k, const uint8_t* data,
+    uint8_t* parity, size_t len) {
+  size_t r = 0;
+  while (r < rows) {
+    if (row_all_ones(matrix + r * k, k)) {
+      xor_row(k, data, parity + r * len, len);
+      ++r;
+      continue;
+    }
+    size_t r1 = r + 1;
+    while (r1 < rows && !row_all_ones(matrix + r1 * k, k)) ++r1;
+#ifdef __AVX2__
+    ceph_tpu_gf_encode_avx2(matrix + r * k, r1 - r, k, data,
+                            parity + r * len, len);
+#else
+    ceph_tpu_gf_encode(matrix + r * k, r1 - r, k, data,
+                       parity + r * len, len);
+#endif
+    r = r1;
+  }
+}
+
+// Batched stripes: data (S, k, len) contiguous, parity (S, rows,
+// len).  One binding call per OBJECT instead of per stripe — the
+// per-call overhead amortizes across the whole batch (ECUtil::encode
+// loops stripes per buffer the same way, osd/ECUtil.cc:99-138).
+extern "C" void ceph_tpu_gf_encode_batch(
+    const uint8_t* matrix, size_t rows, size_t k, const uint8_t* data,
+    uint8_t* parity, size_t len, size_t nstripes) {
+  for (size_t s = 0; s < nstripes; ++s)
+    ceph_tpu_gf_encode_best(matrix, rows, k, data + s * k * len,
+                            parity + s * rows * len, len);
+}
+
+// ---------------------------------------------------------------------------
+// Packetized GF(2) bit-matrix encode (jerasure bitmatrix semantics,
+// ops/gf.py bitmatrix_encode_np layout): chunk j is nblk super-blocks
+// of w packets of `packetsize` bytes; parity chunk i's packet b is the
+// XOR of all data packets (j, t) whose bit is set in
+// bits[i*w + b, j*w + t].  The inner loop is a straight region XOR,
+// which the compiler vectorizes; this is the host analog of
+// jerasure's XOR schedules (cauchy/liberation techniques).
+// ---------------------------------------------------------------------------
+
+extern "C" void ceph_tpu_bitmatrix_encode(
+    const uint8_t* bits, size_t mw, size_t kw, const uint8_t* data,
+    uint8_t* parity, size_t L, size_t w, size_t packetsize) {
+  const size_t super = w * packetsize;
+  const size_t nblk = L / super;
+  const size_t k = kw / w;
+  // Precompute each output row's set-bit source offsets once: the
+  // schedule is reused for every super-block, and the inner loop
+  // becomes "XOR these S source packets into one register
+  // accumulator" — one store per output packet instead of a
+  // read-modify-write per set bit.
+  const size_t max_src = kw;
+  size_t* offs = new size_t[mw * max_src];
+  size_t* counts = new size_t[mw];
+  for (size_t r = 0; r < mw; ++r) {
+    const uint8_t* row = bits + r * kw;
+    size_t n = 0;
+    for (size_t j = 0; j < k; ++j)
+      for (size_t t = 0; t < w; ++t)
+        if (row[j * w + t])
+          offs[r * max_src + n++] = j * L + t * packetsize;
+    counts[r] = n;
+  }
+  // Block-outer iteration: one super-block column's sources are
+  // k*w*packetsize bytes (L1-resident for jerasure-style packet
+  // sizes), so every output row of that column computes from cached
+  // data — row-outer order re-reads the whole data region per row
+  // and thrashes LLC at MiB chunk sizes.
+  for (size_t blk = 0; blk < nblk; ++blk) {
+    const size_t boff = blk * super;
+    for (size_t r = 0; r < mw; ++r) {        // output bit-row i*w+b
+      const size_t i = r / w, b = r % w;
+      const size_t* ro = offs + r * max_src;
+      const size_t n = counts[r];
+      uint8_t* dst = parity + i * L + boff + b * packetsize;
+      size_t u = 0;
+      for (; u + 32 <= packetsize; u += 32) {
+        uint64_t a0 = 0, a1 = 0, a2 = 0, a3 = 0;
+        for (size_t s = 0; s < n; ++s) {
+          const uint8_t* src = data + ro[s] + boff + u;
+          uint64_t c0, c1, c2, c3;
+          memcpy(&c0, src, 8);
+          memcpy(&c1, src + 8, 8);
+          memcpy(&c2, src + 16, 8);
+          memcpy(&c3, src + 24, 8);
+          a0 ^= c0; a1 ^= c1; a2 ^= c2; a3 ^= c3;
+        }
+        memcpy(dst + u, &a0, 8);
+        memcpy(dst + u + 8, &a1, 8);
+        memcpy(dst + u + 16, &a2, 8);
+        memcpy(dst + u + 24, &a3, 8);
+      }
+      for (; u + 8 <= packetsize; u += 8) {
+        uint64_t a = 0;
+        for (size_t s = 0; s < n; ++s) {
+          uint64_t c;
+          memcpy(&c, data + ro[s] + boff + u, 8);
+          a ^= c;
+        }
+        memcpy(dst + u, &a, 8);
+      }
+      for (; u < packetsize; ++u) {
+        uint8_t a = 0;
+        for (size_t s = 0; s < n; ++s) a ^= data[ro[s] + boff + u];
+        dst[u] = a;
+      }
+    }
+  }
+  delete[] offs;
+  delete[] counts;
+}

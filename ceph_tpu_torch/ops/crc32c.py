@@ -1,0 +1,245 @@
+"""CRC32C (Castagnoli) — host reference + GF(2) matrix algebra.
+
+Semantics match the reference's ceph_crc32c (common/crc32c.h): the seed is
+the raw initial register value with **no pre/post inversion** (callers pass
+-1 and xor at the edges when they want the RFC flavor), reflected bit
+order, polynomial 0x1EDC6F41.  `bufferlist::crc32c(seed)` chains calls by
+feeding the previous result as the next seed; HashInfo in the EC path
+(osd/ECUtil.cc:140 in the reference) relies on exactly that chaining.
+
+The device story: CRC32C is GF(2)-linear in the message bits for a fixed
+length, so
+    crc(seed, msg) = S_L @ bits(seed)  ^  C @ bits(msg)        (mod 2)
+where S_L is a 32x32 "advance seed by L bytes" matrix and C is block
+structured.  We factor C in two levels so the per-length matrices stay
+small:  split the message into W-byte blocks, fold each block with the
+*same* 32x(8W) matrix (a position-independent matmul), then
+combine the per-block 32-bit remainders with per-position 32x32 matrices.
+`ceph_tpu_torch.ops.ec_kernels` consumes these matrices, and the CUDA
+CRC kernel stitches its segments with `advance_matrix`.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+
+CASTAGNOLI_POLY = 0x1EDC6F41
+# Reflected (LSB-first) polynomial representation used by the byte-wise
+# right-shift algorithm.
+POLY_REFLECTED = 0x82F63B78
+
+
+@functools.lru_cache(maxsize=1)
+def _table() -> np.ndarray:
+    t = np.zeros(256, dtype=np.uint32)
+    for i in range(256):
+        c = i
+        for _ in range(8):
+            c = (c >> 1) ^ (POLY_REFLECTED if (c & 1) else 0)
+        t[i] = c
+    return t
+
+
+def crc32c_sw(seed: int, data: bytes | np.ndarray) -> int:
+    """Bytewise table CRC32C, ceph raw-seed semantics (no inversions)."""
+    t = _table()
+    crc = seed & 0xFFFFFFFF
+    buf = data.tobytes() if isinstance(data, np.ndarray) else bytes(data)
+    for b in buf:
+        crc = (crc >> 8) ^ int(t[(crc ^ b) & 0xFF])
+    return crc & 0xFFFFFFFF
+
+
+def crc32c(seed: int, data: bytes | np.ndarray) -> int:
+    """Host CRC32C: native sliced-by-8 C++ when built, else bytewise."""
+    from .. import native
+    got = native.crc32c(seed, data)
+    if got is not None:
+        return got
+    return crc32c_sw(seed, data)
+
+
+def crc32c_std(data: bytes) -> int:
+    """RFC-flavor CRC32C (init/xorout 0xffffffff) for test vectors."""
+    return crc32c_sw(0xFFFFFFFF, data) ^ 0xFFFFFFFF
+
+
+@functools.lru_cache(maxsize=1)
+def _slice8_tables() -> np.ndarray:
+    """(8, 256) uint32 slicing-by-8 tables: tables[j][b] is the CRC
+    register after byte b followed by j zero bytes — table 0 folded
+    forward through the zero-byte advance (the same combine algebra as
+    advance_matrix, collapsed to a byte lookup)."""
+    t = np.zeros((8, 256), dtype=np.uint32)
+    t[0] = _table()
+    for j in range(1, 8):
+        prev = t[j - 1]
+        t[j] = (prev >> 8) ^ t[0][prev & 0xFF]
+    return t
+
+
+def crc32c_batch(arr: np.ndarray, seed: int = 0) -> np.ndarray:
+    """CRC32C per row of an (N, L) uint8 array -> (N,) uint32.
+
+    Raw-seed semantics (crc32c_sw).  The native sliced-by-8 C++ kernel
+    serves each row when built; the fallback is a slicing-by-8 update
+    vectorized across the batch axis (8 table lookups fold 8 bytes of
+    every row per step), so a degraded host path folds a whole scrub
+    batch without the per-byte python loop.
+    """
+    arr = np.ascontiguousarray(arr, dtype=np.uint8)
+    if arr.ndim == 1:
+        arr = arr[None]
+    N, L = arr.shape
+    from .. import native
+    got = native.crc32c_batch(seed, arr)
+    if got is not None:
+        return got
+    t = _slice8_tables()
+    crc = np.full(N, seed & 0xFFFFFFFF, dtype=np.uint32)
+    n8 = L - (L % 8)
+    if n8:
+        blocks = arr[:, :n8].reshape(N, n8 // 8, 8)
+        for j in range(n8 // 8):
+            b = blocks[:, j, :].astype(np.uint32)
+            crc = (t[7][(crc ^ b[:, 0]) & 0xFF]
+                   ^ t[6][((crc >> 8) ^ b[:, 1]) & 0xFF]
+                   ^ t[5][((crc >> 16) ^ b[:, 2]) & 0xFF]
+                   ^ t[4][((crc >> 24) ^ b[:, 3]) & 0xFF]
+                   ^ t[3][b[:, 4]] ^ t[2][b[:, 5]]
+                   ^ t[1][b[:, 6]] ^ t[0][b[:, 7]])
+    for j in range(n8, L):
+        crc = (crc >> 8) ^ t[0][(crc ^ arr[:, j]) & 0xFF]
+    return crc
+
+
+# ---------------------------------------------------------------------------
+# GF(2) linear-algebra view
+#
+# State convention: the CRC register as a 32-vector, bit i = (crc >> i) & 1.
+# Message bits enter LSB-first per byte (reflected CRC).  All matrices act
+# as out = (M @ in) % 2.
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def advance_matrix(nbytes: int) -> np.ndarray:
+    """32x32 matrix A with crc(seed, 0^n) = A @ bits(seed) (zero message).
+
+    Computed by squaring: advancing over zero bytes is linear in the state.
+    """
+    M1 = _byte_step_zero()
+    out = np.eye(32, dtype=np.uint8)
+    base = M1
+    n = nbytes
+    while n:
+        if n & 1:
+            out = (base @ out) % 2
+        base = (base @ base) % 2
+        n >>= 1
+    return out.astype(np.uint8)
+
+
+@functools.lru_cache(maxsize=1)
+def _byte_step_zero() -> np.ndarray:
+    """32x32 state transition for one zero message byte."""
+    M = np.zeros((32, 32), dtype=np.uint8)
+    for i in range(32):
+        s = crc32c_sw(1 << i, b"\x00")
+        for r in range(32):
+            if (s >> r) & 1:
+                M[r, i] = 1
+    return M
+
+
+@functools.lru_cache(maxsize=None)
+def message_matrix(nbytes: int) -> np.ndarray:
+    """32 x (8*nbytes) matrix C: crc(0, msg) = C @ msgbits.
+
+    msgbits ordering: byte-major, LSB-first within each byte (matches
+    np.unpackbits(..., bitorder='little') on the raw bytes).
+    """
+    cols = 8 * nbytes
+    M = np.zeros((32, cols), dtype=np.uint8)
+    # contribution of bit b of byte j = crc of message with only that bit
+    # set; linearity lets us build columns independently — but one crc call
+    # per column is O(n^2). Instead: column of (byte j, bit b) equals
+    # advance_{n-1-j} applied to the 32-vec state after feeding that single
+    # byte from zero state.
+    for b in range(8):
+        s0 = crc32c_sw(0, bytes([1 << b]))
+        v0 = _u32_to_bits(s0)
+        for j in range(nbytes):
+            A = advance_matrix(nbytes - 1 - j)
+            M[:, j * 8 + b] = (A @ v0) % 2
+    return M
+
+
+def _u32_to_bits(x: int) -> np.ndarray:
+    return np.array([(x >> i) & 1 for i in range(32)], dtype=np.uint8)
+
+
+def _bits_to_u32(v: np.ndarray) -> int:
+    return int(sum(int(b) << i for i, b in enumerate(np.asarray(v) & 1)))
+
+
+@functools.lru_cache(maxsize=None)
+def block_crc_matrices(nbytes: int, block: int) -> tuple[np.ndarray, np.ndarray]:
+    """Two-level factorization for device CRC of `nbytes`-long chunks.
+
+    Returns (fold, combine):
+      fold:    (32, 8*block) uint8 — same for every block: r_j = fold @ bits(block_j)
+      combine: (nblocks, 32, 32) uint8 — crc(0,msg) = xor_j combine[j] @ r_j
+    nbytes must be a multiple of block.
+    """
+    assert nbytes % block == 0
+    nblocks = nbytes // block
+    fold = message_matrix(block)
+    combine = np.stack([advance_matrix((nblocks - 1 - j) * block)
+                        for j in range(nblocks)], axis=0)
+    return fold, combine
+
+
+@functools.lru_cache(maxsize=None)
+def block_crc_matrices_2level(nbytes: int, block: int, group: int
+                              ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Hierarchical factorization: fold blocks, fold groups, combine groups.
+
+    Returns (fold, gcombine, top):
+      fold:     (32, 8*block)          r_j   = fold @ bits(block_j)
+      gcombine: (group, 32, 32)        s_g   = xor_t gcombine[t] @ r_{g*group+t}
+      top:      (ngroups, 32, 32)      crc   = xor_g top[g] @ s_g
+    The group-relative matrices are position-independent, so the big
+    per-position table of the flat factorization collapses to
+    group + nbytes/(block*group) small matrices.
+    """
+    assert nbytes % (block * group) == 0
+    ngroups = nbytes // (block * group)
+    fold = message_matrix(block)
+    gcombine = np.stack([advance_matrix((group - 1 - t) * block)
+                         for t in range(group)], axis=0)
+    top = np.stack([advance_matrix((ngroups - 1 - g) * block * group)
+                    for g in range(ngroups)], axis=0)
+    return fold, gcombine, top
+
+
+def crc32c_combine(crc_a: int, crc_b: int, len_b: int) -> int:
+    """crc(seed->a over A) then over B == combine(a, crc(0,B), len(B)).
+
+    The classic crc combine: advance a's register over len_b zero bytes and
+    xor with b's register.
+    """
+    A = advance_matrix(len_b)
+    return _bits_to_u32((A @ _u32_to_bits(crc_a)) % 2) ^ crc_b
+
+
+def crc32c_linear(seed: int, data: bytes) -> int:
+    """Reference implementation of the matrix formulation (for tests)."""
+    n = len(data)
+    bits = np.unpackbits(np.frombuffer(data, dtype=np.uint8), bitorder="little")
+    C = message_matrix(n)
+    A = advance_matrix(n)
+    v = ((C @ bits) + (A @ _u32_to_bits(seed))) % 2
+    return _bits_to_u32(v)

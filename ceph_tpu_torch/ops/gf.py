@@ -1,0 +1,526 @@
+"""GF(2^8) arithmetic and erasure-code matrix constructions (host side).
+
+This is the mathematical core behind every Reed-Solomon / Cauchy erasure
+code technique in the framework.  All arithmetic is over GF(2^8) with the
+primitive polynomial x^8 + x^4 + x^3 + x^2 + 1 (0x11d), the polynomial used
+by both jerasure/gf-complete (w=8) and Intel ISA-L, so chunk bytes produced
+here are compatible with the reference plugins' techniques
+(reference: src/erasure-code/jerasure/ErasureCodeJerasure.cc,
+src/erasure-code/isa/ErasureCodeIsa.cc).
+
+GF(2^8) multiplication by a *constant* is linear over GF(2) on the 8 bits
+of a byte, so any (m x k) generator matrix of bytes expands to an
+(8m x 8k) 0/1 matrix and the whole encode becomes a plain integer matmul
+followed by mod-2.  The expansion helpers at the bottom of this file
+produce those bit-matrices; `ceph_tpu_torch.ops.ec_kernels` turns them
+into plain PyTorch transforms, and `ops/cuda_ec.py`'s kernels use the
+log/exp tables directly.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+
+GF_POLY = 0x11D  # x^8+x^4+x^3+x^2+1, primitive; generator alpha=2
+GF_ORDER = 256
+
+
+def _build_tables() -> tuple[np.ndarray, np.ndarray]:
+    """Antilog (exp) and log tables for alpha=2 under poly 0x11d."""
+    exp = np.zeros(512, dtype=np.uint8)
+    log = np.zeros(256, dtype=np.int32)
+    x = 1
+    for i in range(255):
+        exp[i] = x
+        log[x] = i
+        x <<= 1
+        if x & 0x100:
+            x ^= GF_POLY
+    exp[255:510] = exp[0:255]  # wraparound so exp[a+b] works without mod
+    return exp, log
+
+
+GF_EXP, GF_LOG = _build_tables()
+
+
+@functools.lru_cache(maxsize=1)
+def mul_table() -> np.ndarray:
+    """Full 256x256 multiplication table (64 KiB), for vectorized gf ops."""
+    a = np.arange(256, dtype=np.int32)
+    la = GF_LOG[a][:, None]
+    lb = GF_LOG[a][None, :]
+    t = GF_EXP[(la + lb) % 255].astype(np.uint8)
+    t[0, :] = 0
+    t[:, 0] = 0
+    return t
+
+
+def gf_mul(a, b):
+    """Element-wise GF(2^8) multiply; accepts scalars or uint8 arrays."""
+    return mul_table()[np.asarray(a, dtype=np.uint8), np.asarray(b, dtype=np.uint8)]
+
+
+def gf_inv(a):
+    a = np.asarray(a, dtype=np.uint8)
+    if np.any(a == 0):
+        raise ZeroDivisionError("gf_inv(0)")
+    return GF_EXP[(255 - GF_LOG[a]) % 255]
+
+
+def gf_div(a, b):
+    return gf_mul(a, gf_inv(b))
+
+
+def gf_pow(a: int, n: int) -> int:
+    if n == 0:
+        return 1
+    if a == 0:
+        return 0
+    return int(GF_EXP[(int(GF_LOG[a]) * n) % 255])
+
+
+def gf_matmul(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Matrix product over GF(2^8): XOR-accumulate of gf_mul."""
+    a = np.asarray(a, dtype=np.uint8)
+    b = np.asarray(b, dtype=np.uint8)
+    prod = mul_table()[a[:, :, None], b[None, :, :]]  # (r, n, c)
+    return np.bitwise_xor.reduce(prod, axis=1)
+
+
+def gf_matvec(a: np.ndarray, v: np.ndarray) -> np.ndarray:
+    return gf_matmul(a, v.reshape(-1, 1)).reshape(-1)
+
+
+def gf_mat_inv(a: np.ndarray) -> np.ndarray:
+    """Gauss-Jordan inverse over GF(2^8). Raises if singular."""
+    a = np.array(a, dtype=np.uint8)
+    n = a.shape[0]
+    if a.shape != (n, n):
+        raise ValueError("square matrix required")
+    aug = np.concatenate([a, np.eye(n, dtype=np.uint8)], axis=1)
+    for col in range(n):
+        pivot = None
+        for row in range(col, n):
+            if aug[row, col]:
+                pivot = row
+                break
+        if pivot is None:
+            raise np.linalg.LinAlgError("singular matrix over GF(2^8)")
+        if pivot != col:
+            aug[[col, pivot]] = aug[[pivot, col]]
+        aug[col] = gf_mul(aug[col], gf_inv(aug[col, col]))
+        for row in range(n):
+            if row != col and aug[row, col]:
+                aug[row] ^= gf_mul(aug[row, col], aug[col])
+    return aug[:, n:]
+
+
+# ---------------------------------------------------------------------------
+# Generator matrix constructions
+#
+# Each returns the m x k "coding rows" (the implicit identity on top makes
+# the code systematic).  Constructions follow the published algorithms the
+# reference's vendored C libraries implement (Plank's jerasure papers,
+# ISA-L's ec_base), so that chunks are technique-compatible.
+# ---------------------------------------------------------------------------
+
+
+def extended_vandermonde(rows: int, cols: int) -> np.ndarray:
+    """Extended Vandermonde matrix per Plank's RS tutorial correction.
+
+    Row 0 is e_0, row rows-1 is e_{cols-1}, middle rows i are
+    [i^0, i^1, ..., i^{cols-1}] over GF(2^8).
+    """
+    v = np.zeros((rows, cols), dtype=np.uint8)
+    v[0, 0] = 1
+    for i in range(1, rows - 1):
+        acc = 1
+        for j in range(cols):
+            v[i, j] = acc
+            acc = int(gf_mul(acc, i))
+    v[rows - 1, cols - 1] = 1
+    return v
+
+
+def reed_sol_van_matrix(k: int, m: int) -> np.ndarray:
+    """Systematic RS generator, jerasure `reed_sol_van` technique (w=8).
+
+    Builds the (k+m) x k extended Vandermonde matrix and column-reduces it
+    so the top k x k block is the identity; the bottom m rows are the
+    coding matrix (row 0 always all-ones).  Same elimination order as the
+    published algorithm so outputs match the reference technique
+    (reference wrapper: ErasureCodeJerasureReedSolomonVandermonde::prepare,
+    src/erasure-code/jerasure/ErasureCodeJerasure.cc:215).
+    """
+    rows = k + m
+    if rows > GF_ORDER:
+        raise ValueError("k+m must be <= 256 for w=8")
+    v = extended_vandermonde(rows, k)
+    # Column-reduce top square to identity (elementary column operations
+    # preserve the code's systematic property).
+    for i in range(k):
+        if v[i, i] == 0:
+            for j in range(i + 1, k):
+                if v[i, j]:
+                    v[:, [i, j]] = v[:, [j, i]]
+                    break
+            else:
+                raise np.linalg.LinAlgError("vandermonde reduction failed")
+        if v[i, i] != 1:
+            v[:, i] = gf_mul(v[:, i], gf_inv(v[i, i]))
+        for j in range(k):
+            if j != i and v[i, j]:
+                v[:, j] ^= gf_mul(v[i, j], v[:, i])
+    assert np.array_equal(v[:k], np.eye(k, dtype=np.uint8))
+    # Normalize so the first coding row is all ones (pure-XOR parity), per
+    # the published algorithm: scale column j by 1/v[k][j], then rescale
+    # identity row j to restore the 1 on the diagonal.  This yields an
+    # equivalent generalized-RS code with cheaper first parity.
+    if m > 0:
+        for j in range(k):
+            d = int(v[k, j])
+            if d == 0:
+                raise np.linalg.LinAlgError("non-MDS vandermonde reduction")
+            if d != 1:
+                inv = gf_inv(d)
+                v[:, j] = gf_mul(v[:, j], inv)
+                v[j, j] = 1
+    assert np.array_equal(v[:k], np.eye(k, dtype=np.uint8))
+    assert m == 0 or np.all(v[k] == 1)
+    return v[k:]
+
+
+def reed_sol_r6_matrix(k: int) -> np.ndarray:
+    """RAID-6 generator (jerasure `reed_sol_r6_op`): P = xor, Q = sum 2^j d_j."""
+    coding = np.zeros((2, k), dtype=np.uint8)
+    coding[0, :] = 1
+    for j in range(k):
+        coding[1, j] = gf_pow(2, j)
+    return coding
+
+
+def isa_rs_matrix(k: int, m: int) -> np.ndarray:
+    """ISA-L `reed_sol_van` generator (gf_gen_rs_matrix semantics).
+
+    Coding row r uses powers of g_r = 2^r: entry j = g_r^j.  Matches the
+    matrix the reference isa plugin feeds to ec_encode_data
+    (src/erasure-code/isa/ErasureCodeIsa.cc:553 region).
+    Note: like ISA-L, this is only guaranteed MDS for small k+m.
+    """
+    coding = np.zeros((m, k), dtype=np.uint8)
+    gen = 1
+    for r in range(m):
+        p = 1
+        for j in range(k):
+            coding[r, j] = p
+            p = int(gf_mul(p, gen))
+        gen = int(gf_mul(gen, 2))
+    return coding
+
+
+def isa_cauchy_matrix(k: int, m: int) -> np.ndarray:
+    """ISA-L `cauchy` generator (gf_gen_cauchy1_matrix semantics)."""
+    coding = np.zeros((m, k), dtype=np.uint8)
+    for r in range(m):
+        i = k + r
+        for j in range(k):
+            coding[r, j] = gf_inv(i ^ j)
+    return coding
+
+
+def cauchy_orig_matrix(k: int, m: int) -> np.ndarray:
+    """jerasure `cauchy_orig`: M[i][j] = 1 / (i xor (m+j)) over GF(2^8)."""
+    if k + m > GF_ORDER:
+        raise ValueError("k+m must be <= 256 for w=8")
+    coding = np.zeros((m, k), dtype=np.uint8)
+    for i in range(m):
+        for j in range(k):
+            coding[i, j] = gf_inv(i ^ (m + j))
+    return coding
+
+
+def bit_weight(e: int, w: int = 8) -> int:
+    """Number of ones in the w x w GF(2) bit-matrix of multiply-by-e.
+
+    This is jerasure's cauchy_n_ones cost metric: the XOR count of the
+    bit-matrix schedule for multiplying a word by constant e.
+    """
+    return int(byte_bitmatrix(e, w).sum())
+
+
+def cauchy_good_matrix(k: int, m: int) -> np.ndarray:
+    """jerasure `cauchy_good`: cauchy_orig improved to minimize XOR count.
+
+    Normalizes column j by M[0][j] (first row becomes all ones), then for
+    each later row picks the divisor among its elements that minimizes the
+    total bit-matrix ones of the row.
+    """
+    mtx = cauchy_orig_matrix(k, m)
+    for j in range(k):
+        if mtx[0, j] != 1:
+            mtx[:, j] = gf_div(mtx[:, j], mtx[0, j])
+    for i in range(1, m):
+        best_div, best_cost = 1, sum(bit_weight(int(e)) for e in mtx[i])
+        for d in mtx[i]:
+            d = int(d)
+            if d in (0, 1):
+                continue
+            cost = sum(bit_weight(int(e)) for e in gf_div(mtx[i], d))
+            if cost < best_cost:
+                best_div, best_cost = d, cost
+        if best_div != 1:
+            mtx[i] = gf_div(mtx[i], best_div)
+    return mtx
+
+
+def systematic_generator(coding: np.ndarray, k: int) -> np.ndarray:
+    """Stack identity over the coding rows: full (k+m) x k generator."""
+    return np.concatenate([np.eye(k, dtype=np.uint8), coding], axis=0)
+
+
+def decode_matrix(generator: np.ndarray, k: int, present: list[int]) -> np.ndarray:
+    """Rows that rebuild the k data chunks from `present` chunk indices.
+
+    Select k generator rows (one per surviving chunk), invert over GF(2^8);
+    row i of the result reconstructs data chunk i as a combination of the
+    surviving chunks, in the order given by `present`.
+    """
+    if len(present) != k:
+        raise ValueError(f"need exactly k={k} present chunks, got {len(present)}")
+    sub = generator[np.asarray(present, dtype=np.int64)]
+    return gf_mat_inv(sub)
+
+
+# ---------------------------------------------------------------------------
+# GF(2) bit-matrix expansion
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _byte_bitmatrix_cached(e: int, w: int) -> bytes:
+    cols = []
+    x = e
+    for _t in range(w):
+        cols.append([(x >> b) & 1 for b in range(w)])
+        x = int(gf_mul(x, 2)) if w == 8 else _gfw_mul2(x, w)
+    # cols[t][b] = bit b of e * alpha^t ; we want M[b][t]
+    m = np.array(cols, dtype=np.uint8).T
+    return m.tobytes()
+
+
+def _gfw_mul2(x: int, w: int) -> int:
+    polys = {4: 0x13, 8: 0x11D, 16: 0x1100B, 32: 0x100400007}
+    x <<= 1
+    if x >> w:
+        x ^= polys[w]
+    return x
+
+
+def byte_bitmatrix(e: int, w: int = 8) -> np.ndarray:
+    """w x w GF(2) matrix M with bits(e*x) = M @ bits(x) mod 2.
+
+    Column t holds the bits of e * alpha^t (alpha = 2); for t < w that
+    equals e * (1<<t), i.e. the image of basis bit t.
+    """
+    return np.frombuffer(_byte_bitmatrix_cached(int(e), w), dtype=np.uint8).reshape(w, w)
+
+
+def expand_bitmatrix(mtx: np.ndarray, w: int = 8) -> np.ndarray:
+    """Expand an (r x c) GF(2^w) matrix to an (r*w x c*w) GF(2) matrix.
+
+    Same block layout as jerasure_matrix_to_bitmatrix: block (i, j) is the
+    w x w multiply-by-mtx[i,j] matrix, so for packetized data
+    out_packet[i*w + b] = xor over (j, t) with bit set of in_packet[j*w + t].
+    """
+    r, c = mtx.shape
+    out = np.zeros((r * w, c * w), dtype=np.uint8)
+    for i in range(r):
+        for j in range(c):
+            out[i * w:(i + 1) * w, j * w:(j + 1) * w] = byte_bitmatrix(int(mtx[i, j]), w)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# numpy reference encode/decode (ground truth for kernels and native code)
+# ---------------------------------------------------------------------------
+
+
+def encode_np(coding: np.ndarray, data: np.ndarray) -> np.ndarray:
+    """data: (k, L) uint8 -> parity (m, L) uint8, pure numpy (slow, exact)."""
+    m, k = coding.shape
+    assert data.shape[0] == k
+    out = np.zeros((m, data.shape[1]), dtype=np.uint8)
+    tbl = mul_table()
+    for i in range(m):
+        acc = np.zeros(data.shape[1], dtype=np.uint8)
+        for j in range(k):
+            acc ^= tbl[coding[i, j]][data[j]]
+        out[i] = acc
+    return out
+
+
+def bitmatrix_encode_np(bitmatrix: np.ndarray, data: np.ndarray,
+                        w: int, packetsize: int) -> np.ndarray:
+    """Packetized GF(2) schedule encode (jerasure bitmatrix semantics).
+
+    data: (k, L) uint8 with L % (w*packetsize) == 0.  Chunk j is a sequence
+    of super-blocks of w packets of `packetsize` bytes; coding chunk i's
+    packet b is the XOR of all data packets (j, t) whose bit is set in
+    bitmatrix[i*w+b, j*w+t].
+    """
+    mw, kw = bitmatrix.shape
+    m, k = mw // w, kw // w
+    assert data.shape[0] == k
+    L = data.shape[1]
+    assert L % (w * packetsize) == 0, (L, w, packetsize)
+    nblk = L // (w * packetsize)
+    d = data.reshape(k, nblk, w, packetsize)
+    out = np.zeros((m, nblk, w, packetsize), dtype=np.uint8)
+    for i in range(m):
+        for b in range(w):
+            row = bitmatrix[i * w + b]
+            acc = np.zeros((nblk, packetsize), dtype=np.uint8)
+            for j in range(k):
+                for t in range(w):
+                    if row[j * w + t]:
+                        acc ^= d[j, :, t, :]
+            out[i, :, b, :] = acc
+    return out.reshape(m, L)
+
+
+# ---------------------------------------------------------------------------
+# Minimal-density bit-matrix techniques (m=2 RAID-6 family)
+#
+# These are NATIVE GF(2) bit-matrices, not expansions of GF(2^w) byte
+# matrices (reference: jerasure's liberation.c constructions used by
+# erasure-code/jerasure/ErasureCodeJerasure.h:176-259).  Layout matches
+# expand_bitmatrix: parity chunk i's packet b = XOR of data packets
+# (j, t) with bits[i*w + b, j*w + t] set.
+# ---------------------------------------------------------------------------
+
+
+def _is_prime(n: int) -> bool:
+    if n < 2:
+        return False
+    for p in range(2, int(n ** 0.5) + 1):
+        if n % p == 0:
+            return False
+    return True
+
+
+def liberation_bitmatrix(k: int, w: int) -> np.ndarray:
+    """Liberation codes (Plank 2008): w prime, k <= w, m = 2.
+
+    Parity 0 is the XOR of corresponding bits (identity blocks);
+    parity 1's block for data column j is the identity rotated by j
+    with one extra "bonus" bit for j > 0 — the minimal-density
+    construction of jerasure's liberation_coding_bitmatrix.
+    """
+    if not _is_prime(w):
+        raise ValueError(f"liberation requires prime w, got {w}")
+    if k > w:
+        raise ValueError(f"liberation requires k <= w ({k} > {w})")
+    bits = np.zeros((2 * w, k * w), dtype=np.uint8)
+    for i in range(w):
+        for j in range(k):
+            bits[i, j * w + i] = 1
+    for j in range(k):
+        for i in range(w):
+            bits[w + i, j * w + (j + i) % w] = 1
+        if j > 0:
+            i = (j * ((w - 1) // 2)) % w
+            bits[w + i, j * w + (i + j - 1) % w] = 1
+    return bits
+
+
+def blaum_roth_bitmatrix(k: int, w: int) -> np.ndarray:
+    """Blaum-Roth codes: w + 1 prime, k <= w, m = 2.
+
+    Parity 1's block for data column j is multiplication by x^j in the
+    ring F2[x]/M_p(x), M_p = (x^p - 1)/(x - 1), p = w + 1: basis
+    x^t -> x^((j+t) mod p), where x^w reduces to the all-ones vector.
+    """
+    p = w + 1
+    if not _is_prime(p):
+        raise ValueError(f"blaum_roth requires w+1 prime, got w={w}")
+    if k > w:
+        raise ValueError(f"blaum_roth requires k <= w ({k} > {w})")
+    bits = np.zeros((2 * w, k * w), dtype=np.uint8)
+    for i in range(w):
+        for j in range(k):
+            bits[i, j * w + i] = 1
+    for j in range(k):
+        for t in range(w):
+            s = (j + t) % p
+            if s == w:
+                bits[w: 2 * w, j * w + t] = 1
+            else:
+                bits[w + s, j * w + t] = 1
+    return bits
+
+
+def liber8tion_bitmatrix(k: int) -> np.ndarray:
+    """liber8tion slot: w = 8, m = 2, k <= 8.
+
+    DIVERGENCE NOTE: the reference's liber8tion matrices are a table
+    from Plank's paper (jerasure liber8tion.c), which is not available
+    in this environment; this uses the multiply-by-alpha^j GF(2^8)
+    bit-matrix (an MDS m=2 code with the same geometry).  On-disk
+    parity bytes therefore differ from upstream jerasure's liber8tion.
+    """
+    if k > 8:
+        raise ValueError(f"liber8tion requires k <= 8, got {k}")
+    mtx = np.zeros((2, k), dtype=np.uint8)
+    mtx[0, :] = 1
+    for j in range(k):
+        mtx[1, j] = gf_pow(2, j)
+    return expand_bitmatrix(mtx, 8)
+
+
+def gf2_inv(mat: np.ndarray) -> np.ndarray:
+    """Invert a square 0/1 matrix over GF(2) (Gaussian elimination)."""
+    n = mat.shape[0]
+    a = (mat.astype(np.uint8) & 1).copy()
+    inv = np.eye(n, dtype=np.uint8)
+    for col in range(n):
+        piv = None
+        for r in range(col, n):
+            if a[r, col]:
+                piv = r
+                break
+        if piv is None:
+            raise ValueError("singular GF(2) matrix")
+        if piv != col:
+            a[[col, piv]] = a[[piv, col]]
+            inv[[col, piv]] = inv[[piv, col]]
+        rows = np.nonzero(a[:, col])[0]
+        rows = rows[rows != col]
+        a[rows] ^= a[col]
+        inv[rows] ^= inv[col]
+    return inv
+
+
+def bitmatrix_decode_rows(gen_bits: np.ndarray, k: int, w: int,
+                          want: list, present: list) -> np.ndarray:
+    """GF(2) decode planner for native bit-matrix codes.
+
+    gen_bits: ((k+m)*w, k*w) systematic generator (identity on top).
+    Returns (len(want)*w, len(present)*w) bits mapping the stacked
+    surviving chunks' packets to the wanted chunks' packets.
+    """
+    assert len(present) >= k
+    sel = np.vstack([gen_bits[c * w:(c + 1) * w] for c in present[:k]])
+    inv = gf2_inv(sel)
+    out_rows = []
+    for c in want:
+        rows = gen_bits[c * w:(c + 1) * w]
+        out_rows.append((rows @ inv) & 1)
+    out = np.vstack(out_rows).astype(np.uint8)
+    # columns beyond the first k present chunks are unused
+    if len(present) > k:
+        pad = np.zeros((out.shape[0], (len(present) - k) * w),
+                       dtype=np.uint8)
+        out = np.hstack([out, pad])
+    return out

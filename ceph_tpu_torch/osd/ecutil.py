@@ -1,0 +1,293 @@
+"""EC stripe math + batched object encode/decode (osd/ECUtil.{h,cc}).
+
+stripe_info_t (src/osd/ECUtil.h:35-85) gives the
+logical<->chunk offset algebra: an object is a sequence of stripes of
+stripe_width = k * chunk_size logical bytes; shard i's file is chunk i
+of every stripe, concatenated.  The reference encodes stripe-by-stripe
+(ECUtil::encode loop, ECUtil.cc:99-138) and chains per-shard CRC32C
+(HashInfo::append, ECUtil.cc:140-154).  Here the whole object's stripes
+form ONE (S, k, L) batch: a single fused device pass yields every
+parity chunk and every scrub CRC, and the per-shard cumulative CRC is
+folded on host with the carry-less combine — so the OSD data path rides
+the card's kernels exactly where the reference rides SSE/AVX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..erasure.interface import CHUNK_ALIGN, ErasureCodeError
+from ..ops import crc32c as crc_mod
+from ..utils import copyaudit
+from ..utils.bufferlist import as_buffer, iov_of
+
+DEFAULT_STRIPE_UNIT = 4096
+
+
+class StripeInfo:
+    """stripe_info_t: offset algebra between logical and chunk space."""
+
+    def __init__(self, k: int, stripe_unit: int = DEFAULT_STRIPE_UNIT):
+        if stripe_unit % CHUNK_ALIGN:
+            stripe_unit = -(-stripe_unit // CHUNK_ALIGN) * CHUNK_ALIGN
+        self.k = k
+        self.chunk_size = stripe_unit
+        self.stripe_width = k * stripe_unit
+
+    # -- logical axis (ECUtil.h:59-85) ------------------------------------
+
+    def logical_to_prev_stripe_offset(self, off: int) -> int:
+        return off - (off % self.stripe_width)
+
+    def logical_to_next_stripe_offset(self, off: int) -> int:
+        return -(-off // self.stripe_width) * self.stripe_width
+
+    def aligned_logical_offset_to_chunk_offset(self, off: int) -> int:
+        assert off % self.stripe_width == 0
+        return off // self.k
+
+    def aligned_chunk_offset_to_logical_offset(self, off: int) -> int:
+        assert off % self.chunk_size == 0
+        return off * self.k
+
+    def offset_len_to_stripe_bounds(self, off: int,
+                                    length: int) -> tuple[int, int]:
+        """(first_stripe_offset, aligned_length) covering [off, off+len)."""
+        start = self.logical_to_prev_stripe_offset(off)
+        end = self.logical_to_next_stripe_offset(off + length)
+        return start, end - start
+
+    # -- sizes -------------------------------------------------------------
+
+    def stripe_count(self, logical_size: int) -> int:
+        return max(1, -(-logical_size // self.stripe_width))
+
+    def logical_size_to_shard_size(self, logical_size: int) -> int:
+        return self.stripe_count(logical_size) * self.chunk_size
+
+
+def fold_shard_crcs(stripe_crcs: np.ndarray, chunk_size: int,
+                    upto: int | None = None) -> list[int]:
+    """Fold the first `upto` stripes' chunk CRCs (S, km) into one
+    cumulative CRC per shard with the carry-less combine — the
+    chained-seed model of HashInfo::append.  upto=0 -> 0 per shard
+    (CRC32C of the empty prefix under seed-chaining)."""
+    S, km = stripe_crcs.shape
+    if upto is None:
+        upto = S
+    out = []
+    for c in range(km):
+        if upto == 0:
+            out.append(0)
+            continue
+        crc = int(stripe_crcs[0, c])
+        for s in range(1, upto):
+            crc = crc_mod.crc32c_combine(crc, int(stripe_crcs[s, c]),
+                                         chunk_size)
+        out.append(crc)
+    return out
+
+
+class EncodeHandle:
+    """In-flight whole-object encode: the stripes ride the shared
+    device pipeline (coalescing with every other producer) while the
+    caller builds its transactions/log entries; .result() blocks for
+    (per-shard files, per-stripe chunk CRCs) at commit time.
+
+    Shard files are ZERO-COPY views: one contiguous (km, S*L) relayout
+    of the encode output (the only materialization — the shard-major
+    transpose the store layout requires), then each shard is a
+    memoryview row of it.  The views ride transaction writes, peer
+    sub-op messages (out-of-band CTM2 segments) and store applies
+    without ever becoming per-shard bytes objects."""
+
+    __slots__ = ("_get", "_get_parts", "_arena", "_src")
+
+    def __init__(self, get, get_parts=None, arena=None, src=None):
+        self._get = get
+        self._get_parts = get_parts
+        self._arena = arena
+        self._src = src             # codec handle: phase stamps source
+
+    def result(self, timeout=None) -> tuple[list[memoryview], np.ndarray]:
+        if self._get_parts is not None:
+            # parts path: shards lay out straight from (stripes,
+            # parity) — the joined (S, km, L) intermediate never exists
+            stripes, parity, stripe_crcs = self._get_parts(timeout)
+            S, k, L = stripes.shape
+            km = k + parity.shape[1]
+            shards = np.empty((km, S, L), dtype=np.uint8)
+            shards[:k] = stripes.transpose(1, 0, 2)
+            shards[k:] = parity.transpose(1, 0, 2)
+        else:
+            allc, stripe_crcs = self._get(timeout)
+            S, km, L = allc.shape
+            shards = np.ascontiguousarray(allc.transpose(1, 0, 2))
+        # the shard fan-out above was the LAST reader of the staging
+        # arena: return it to the pool for the next mega-write (its
+        # device buffer, if donated, is already consumed)
+        arena, self._arena = self._arena, None
+        if arena is not None:
+            arena.release()
+        # (op tracing of the pipeline's phase stamps is not ported yet)
+        # (km, S*L): the shard-major relayout — ONE copy for all km
+        # shard files (audited), rows are views of it
+        shards = shards.reshape(km, S * L)
+        copyaudit.note("ec.shard_layout", shards.nbytes)
+        return ([memoryview(shards[c]) for c in range(km)],
+                np.asarray(stripe_crcs))
+
+
+def encode_object_async(codec, sinfo: StripeInfo, payload: bytes,
+                        cache=None, qos=None) -> EncodeHandle:
+    """Submit a whole-object encode; see EncodeHandle.
+
+    Shard i's file holds chunk i of every stripe (the reference's shard
+    layout); zero-padding of the tail stripe is part of the encoded
+    state, as in ErasureCode::encode_prepare.  The raw (S, km) CRC
+    matrix lets callers fold both the full-file CRC and the
+    full-stripe-prefix CRC an append will chain from.
+
+    `cache` (an ops.hbm_cache.CacheIntent) tags the encode for the
+    HBM stripe cache: a device dispatch keeps the encoded stripes on
+    its chip so later scrubs/recoveries of this object never re-upload
+    (the caller commits the entry once the shards are on disk).
+
+    `payload` may be bytes, a memoryview, or a BufferList rope — rope
+    segments stage straight into the (S, k, L) batch buffer, so the
+    whole client->encode journey costs exactly this ONE copy (the
+    audited `ec.stage` site).  A MESH-sized payload (staged bytes over
+    a single dispatch lane's budget, conf osd_ec_mesh_min_bytes)
+    stages into a pinned arena from the pipeline's pool instead: the
+    mesh dispatch donates the arena's device buffer to the
+    computation, so the staging copy IS the H2D upload and the
+    `ec.stage` site retires on that path (a degrade to row-split or
+    host re-arms it)."""
+    plen = len(payload)
+    S = sinfo.stripe_count(plen)
+    L = sinfo.chunk_size
+    nbytes = S * sinfo.stripe_width
+    arena = None
+    if hasattr(codec, "encode_stripes_with_crcs_async"):
+        from ..ops import pipeline as ec_pipeline
+        arena = ec_pipeline.get().checkout_arena(nbytes, plen)
+    buf = arena.buf if arena is not None \
+        else np.zeros(nbytes, dtype=np.uint8)
+    off = 0
+    for seg in iov_of(payload):
+        n = len(seg)
+        buf[off: off + n] = np.frombuffer(seg, dtype=np.uint8)
+        off += n
+    if arena is None:
+        copyaudit.note("ec.stage", plen)
+    stripes = buf.reshape(S, sinfo.k, L)
+    if hasattr(codec, "encode_stripes_with_crcs_async"):
+        try:
+            handle = codec.encode_stripes_with_crcs_async(
+                stripes, cache=cache, qos=qos, arena=arena)
+        except TypeError:   # non-pipeline codec: no cache/qos support
+            if arena is not None:
+                arena.noted = True
+                copyaudit.note("ec.stage", plen)
+            handle = codec.encode_stripes_with_crcs_async(stripes)
+        parts = getattr(handle, "result_parts", None)
+        return EncodeHandle(lambda t: handle.result(t),
+                            get_parts=parts, arena=arena, src=handle)
+    out = codec.encode_stripes_with_crcs(stripes)
+    return EncodeHandle(lambda t: out)
+
+
+def encode_object_ex(codec, sinfo: StripeInfo, payload: bytes,
+                     qos=None) -> tuple[list[bytes], np.ndarray]:
+    """Whole-batch encode -> (per-shard files, per-stripe chunk CRCs).
+    `qos` tags the dispatch-lane pick (recovery rebuilds ride the
+    @recovery class when one is configured)."""
+    return encode_object_async(codec, sinfo, payload, qos=qos).result()
+
+
+def encode_object(codec, sinfo: StripeInfo,
+                  payload: bytes) -> tuple[list[bytes], list[int]]:
+    """Whole-object encode -> (per-shard files, per-shard CRCs)."""
+    shards, stripe_crcs = encode_object_ex(codec, sinfo, payload)
+    return shards, fold_shard_crcs(stripe_crcs, sinfo.chunk_size)
+
+
+def decode_object(codec, sinfo: StripeInfo, shards: dict[int, bytes],
+                  logical_size: int, qos=None):
+    """Reassemble logical bytes from >= k shard files as a ZERO-COPY
+    :class:`~ceph_tpu_torch.utils.bufferlist.BufferList`.
+
+    Intact data shards contribute per-stripe chunk VIEWS straight over
+    the shard buffers (the decode_concat fast path, without the join);
+    missing data chunks are rebuilt in ONE batched device/host pass
+    across all stripes rather than stripe-at-a-time, and only the
+    rebuilt chunks materialize (audited ``ec.decode_rebuild``).  The
+    old whole-object relayout+``tobytes`` copied every read once; now
+    the host read floor matches the write floor — payload bytes
+    materialize only where the copy audit says so."""
+    from ..utils.bufferlist import BufferList
+    k = codec.get_data_chunk_count()
+    L = sinfo.chunk_size
+    shard_size = sinfo.logical_size_to_shard_size(logical_size)
+    usable = {int(i): s for i, s in shards.items() if len(s) == shard_size}
+    S = shard_size // L
+    want = [i for i in range(k) if i not in usable]
+    arrs: dict[int, np.ndarray] = {
+        i: np.frombuffer(as_buffer(s), dtype=np.uint8).reshape(S, L)
+        for i, s in usable.items()}
+    if want:
+        present = codec.minimum_to_decode(want, usable.keys())
+        if any(p not in arrs for p in present):
+            raise ErasureCodeError(
+                f"need chunks {present}, have {sorted(arrs)}")
+        if hasattr(codec, "decode_batch"):
+            stack = np.stack([arrs[p] for p in present], axis=1)
+            # pipeline-coalesced when available: concurrent rebuilds
+            # with one decode pattern share a device dispatch
+            if hasattr(codec, "decode_batch_async"):
+                try:
+                    # `qos` tags the decode lane pick the same way the
+                    # encode path tags re-encodes: a rebuild's decode
+                    # rides @recovery under the repair cap, not the
+                    # client best-effort class
+                    handle = codec.decode_batch_async(
+                        want, present, stack, qos=qos)
+                except TypeError:   # non-pipeline codec: no qos kwarg
+                    handle = codec.decode_batch_async(
+                        want, present, stack)
+                rebuilt = np.asarray(handle.result())
+            else:
+                rebuilt = np.asarray(
+                    codec.decode_batch(want, present, stack))
+            for idx, c in enumerate(want):
+                # (S, idx, L) slice is strided: the rebuilt chunk is
+                # the decode OUTPUT materializing — the only copy a
+                # degraded read pays, and only for the missing chunks
+                chunk = np.ascontiguousarray(rebuilt[:S, idx])
+                copyaudit.note("ec.decode_rebuild", chunk.nbytes)
+                arrs[c] = chunk
+        else:
+            for s in range(S):
+                out = codec.decode_chunks(
+                    want, {p: arrs[p][s] for p in present})
+                for c in want:
+                    arrs.setdefault(c, np.empty((S, L), dtype=np.uint8))
+                    arrs[c][s] = out[c]
+            for c in want:
+                # same materialization as the batched path above —
+                # the per-read copy floor must not under-report for
+                # codecs without decode_batch
+                copyaudit.note("ec.decode_rebuild", arrs[c].nbytes)
+    rope = BufferList()
+    remaining = logical_size
+    for s in range(S):
+        if remaining <= 0:
+            break
+        for i in range(k):
+            if remaining <= 0:
+                break
+            take = min(L, remaining)
+            mv = memoryview(arrs[i][s])
+            rope.append(mv[:take] if take < L else mv)
+            remaining -= take
+    return rope

@@ -1,0 +1,122 @@
+"""Host-copy audit: runtime accounting of payload-byte copies.
+
+The zero-copy data path (utils/bufferlist.py rope payloads, CTM2
+out-of-band message segments, shard-view EC fan-out, memoryview store
+writes) leaves a small, known set of places where payload bytes are
+still materialized on the host:
+
+  * ``ec.stage``        — padding/reshaping a payload into the (S, k, L)
+                          stripe batch the encode kernel consumes (the
+                          H2D staging buffer; one copy per encode).
+                          RETIRED on the mesh-dispatch path: a
+                          mesh-sized payload stages into a pinned
+                          arena whose upload is donated to the device
+                          computation (ops/pipeline.py StagingArena),
+                          so the staging copy IS the H2D transfer —
+                          the site re-arms automatically when such a
+                          batch degrades to a non-mesh serve;
+  * ``journal.append``  — the WAL flatten: journaled stores serialize
+                          the transaction batch once, by design the only
+                          place the write path flattens shard bytes;
+  * ``bufferlist.flatten`` — an explicit ``BufferList.to_bytes()`` (a
+                          consumer that genuinely needs contiguous
+                          bytes, e.g. a sub-threshold inline field);
+  * ``msg.inline``      — a bytes field too small for an out-of-band
+                          segment, denc-copied into the frame.
+
+Every such site calls :func:`note` with the byte count; ``perf dump``
+exposes the totals plus ``host_copies_per_write`` (copies amortized
+over the daemon's write ops), and ``bench.py --smoke`` gates the
+per-write copy count so a copy regression in the hot path fails CI
+loudly instead of silently re-widening the kernel<->e2e gap.
+
+Counters are process-wide (the write path spans client, messenger, OSD
+and store layers in one process here), monotonic, and cheap: one lock,
+two adds.
+"""
+
+from __future__ import annotations
+
+import threading
+
+_lock = threading.Lock()
+_copies = 0
+_bytes = 0
+_writes = 0
+_reads = 0
+_sites: dict[str, list[int]] = {}      # site -> [copies, bytes]
+
+# sites that materialize payload on the READ path (the read-side
+# zero-copy scope): their copies amortize over read ops as
+# host_copies_per_read.  The hot cache/intact read path contributes
+# ZERO entries here — only degraded reads (chunk rebuild) and explicit
+# flattens by read consumers pay.
+READ_SITES = frozenset({
+    "ec.decode_rebuild",       # degraded read: rebuilt chunks only
+    "read.flatten",            # a read consumer flattening its rope
+    "cache.mesh_unpad",        # cache-served read of a PADDED mesh
+                               # entry: the pad-strip contiguous copy
+})
+
+
+def note(site: str, nbytes: int) -> None:
+    """Record one host materialization of `nbytes` payload bytes."""
+    global _copies, _bytes
+    with _lock:
+        _copies += 1
+        _bytes += nbytes
+        ent = _sites.get(site)
+        if ent is None:
+            _sites[site] = [1, nbytes]
+        else:
+            ent[0] += 1
+            ent[1] += nbytes
+
+
+def note_write() -> None:
+    """Record one client write op reaching a primary — the PROCESS-WIDE
+    denominator for host_copies_per_write.  Copies are counted
+    process-wide (the path spans client/msg/osd/store in one process),
+    so the write count must be too: dividing by one daemon's own op_w
+    would over-report by the daemon count in a multi-OSD process."""
+    global _writes
+    with _lock:
+        _writes += 1
+
+
+def note_read() -> None:
+    """One client read op served by a primary — the denominator for
+    host_copies_per_read (same process-wide rationale as writes)."""
+    global _reads
+    with _lock:
+        _reads += 1
+
+
+def snapshot() -> dict:
+    """Totals + per-site breakdown (the perf-dump ``data_path`` block)."""
+    with _lock:
+        read_copies = sum(c for s, (c, b) in _sites.items()
+                          if s in READ_SITES)
+        read_bytes = sum(b for s, (c, b) in _sites.items()
+                         if s in READ_SITES)
+        return {
+            "host_copies": _copies,
+            "ec_host_copy_bytes": _bytes,
+            "writes": _writes,
+            "reads": _reads,
+            "read_copies": read_copies,
+            "read_copy_bytes": read_bytes,
+            "sites": {s: {"copies": c, "bytes": b}
+                      for s, (c, b) in sorted(_sites.items())},
+        }
+
+
+def reset() -> None:
+    """Zero all counters (bench phases measure deltas this way)."""
+    global _copies, _bytes, _writes, _reads
+    with _lock:
+        _copies = 0
+        _bytes = 0
+        _writes = 0
+        _reads = 0
+        _sites.clear()
