@@ -6,11 +6,16 @@ Counterpart of ``ceph_tpu/ops/pallas_ec.py``:
     (replaces ``_encode_kernel``): GF(2^8) matrix x chunks, the encode
     with the coding matrix and the rebuild decode with
     ``gf.decode_matrix`` rows;
-  * ``crc32c_rows`` / ``make_crc_fn`` launch ``csrc/crc32c.cu``
-    (replaces ``_crc_kernel``): CRC32C (seed 0) per row;
-  * ``make_encode_crc_fn`` is the fused pass: encode, then the CRCs of
-    the data rows and of the parity rows into one (B, k+m) array, all on
-    one stream with no host sync and no concatenation copy.
+  * ``gf_encode_segment_crcs`` launches its fused mode: the same
+    product, plus the 4 KiB segment CRCs of the data and parity rows,
+    with each data byte read once;
+  * ``crc32c_segments`` and ``crc32c_chain`` launch the two passes of
+    ``csrc/crc32c.cu`` (together they replace ``_crc_kernel``): segment
+    CRCs of rows, and row CRCs from segment CRCs; ``crc32c_rows`` /
+    ``make_crc_fn`` run both, CRC32C (seed 0) per row;
+  * ``make_encode_crc_fn`` is the fused pass: ``gf_encode_segment_crcs``
+    then ``crc32c_chain`` into one (B, k+m) array, on one stream with no
+    host sync and no concatenation copy.
 
 They keep ``pallas_ec``'s call contract without its TPU limits (any L,
 no tile sizes).  Each wrapper checks device, dtype, shape and
@@ -20,9 +25,10 @@ contiguity.  A CPU tensor runs the plain PyTorch version from
 The kernels are built at first use with nvcc for sm_90a, one shared
 library with a plain C interface per source (all sources compile in
 parallel), into ``ceph_tpu_torch/_build/`` under a name keyed by a hash
-of the source and flags, and bound with ctypes.  ``launches`` counts
-kernel launches per wrapper, so a run can show which kernels its path
-went through.
+of the source, the shared headers (``csrc/*.cuh``) and the flags, and
+bound with ctypes.  ``launches`` counts the launches of each kernel,
+one key per kernel entry point, so a run can show which kernels its
+path went through.
 """
 
 from __future__ import annotations
@@ -50,21 +56,36 @@ SOURCES = {"gf_encode": "gf_encode.cu", "crc32c": "crc32c.cu"}
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _ARGTYPES = {
-    "gf_encode": ("ceph_gf_encode", [_P, _P, _P, _I, _I, _I, _I64, _P]),
-    "crc32c": ("ceph_crc32c_rows", [_P, _I, _I64, _P, _P, _I, _I, _I, _P,
-                                    _P]),
+    "gf_encode": {"ceph_gf_encode": [_P, _P, _P, _I, _I, _I, _I64, _P],
+                  "ceph_gf_encode_crc": [_P, _P, _P, _I, _I, _I, _I64, _P,
+                                         _P, _P]},
+    "crc32c": {"ceph_crc32c_segments": [_P, _I64, _I64, _P, _P, _P],
+               "ceph_crc32c_chain": [_P, _I64, _I, _P, _I, _I, _I, _P,
+                                     _P]},
 }
 
-# kernel launches per kernel (the fused pass launches gf_encode once
-# and crc32c twice, and has no count of its own)
-launches = {"gf_encode": 0, "crc32c": 0}
+# launches per kernel entry point: gf_encode.cu's plain and fused modes,
+# crc32c.cu's segment and chain passes.  The fused pass is
+# gf_encode_crc + crc32c_chain and has no count of its own.
+launches = {"gf_encode": 0, "gf_encode_crc": 0, "crc32c_segments": 0,
+            "crc32c_chain": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _build_lock = threading.Lock()
 
-CRC_SEG = 4096                  # bytes per segment, csrc/crc32c.cu kSeg
-_CRC_LANE = 128                 # bytes per lane, kLane
-_GF_MAX_PARAMS = 48 * 1024      # static shared-memory budget of a block
+CRC_SEG = 4096              # bytes per segment, csrc/crc_seg.cuh kSeg
+CRC_BLOCK = 128             # bytes a lane group loads, kBlock
+CRC_STRIDE = CRC_SEG + 16   # staged bytes per segment, kStride
+CRC_COLS = 8                # segments per tensor-core fold, kCols
+CRC_WARPS = 8               # warps splitting a segment, 512 bytes each
+CRC_CHAIN_LEVELS = 20       # adv_4096 * 2^e, kChainLevels
+CRC_RANGE = CRC_SEG // CRC_WARPS    # bytes folded by one warp, kRange
+CRC_SLICES = CRC_RANGE * 8 // 256   # K-slices of a range, kSlices
+CRC_FRAG_WORDS = 2 * CRC_SLICES * 32 * 4
+CRC_SMEM_WORDS = CRC_FRAG_WORDS + (CRC_WARPS - 1) * 128   # kSmemWords
+CRC_MAX_SEGMENTS = 32 << (CRC_CHAIN_LEVELS - 5)    # chain pass limit
+GF_TAB_WORDS = 8            # table words per (row, column), kTabWords
+GF_SMEM_MAX = 232448        # shared memory a Hopper block may opt into
 
 
 def reset_launches() -> None:
@@ -90,10 +111,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, SOURCES[name])
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for src in [SOURCES[name], *headers]:
+        with open(os.path.join(CSRC_DIR, src), "rb") as f:
+            h.update(src.encode() + b"\0" + f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}.{h.hexdigest()[:16]}.so")
 
@@ -135,10 +157,10 @@ def _lib(name: str) -> ctypes.CDLL:
         if lib is None:
             build([name])
             lib = ctypes.CDLL(library_path(name))
-            fn_name, argtypes = _ARGTYPES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for fn_name, argtypes in _ARGTYPES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _libs[name] = lib
     return lib
 
@@ -172,14 +194,33 @@ def _check_u8(t: torch.Tensor, ndim: int, what: str) -> None:
 
 
 def gf_params(matrix: np.ndarray) -> np.ndarray:
-    """gf_encode.cu's parameter block: log[256] | exp[512] | the
-    matrix's logs (r, c), with 255 standing for log 0."""
+    """gf_encode.cu's byte-permute product tables, (r, c, 8) uint32: for
+    coefficient a = M[i][j], words 0-1 hold the bytes a*v, words 2-3 the
+    bytes a*(v << 3) (v < 8), word 4 the bytes a*(v << 6) (v < 4)."""
     matrix = np.ascontiguousarray(matrix, dtype=np.uint8)
-    log = gf.GF_LOG.astype(np.uint8)
-    log[0] = 255
-    mlog = log[matrix]
-    return np.concatenate([log, gf.GF_EXP.astype(np.uint8),
-                           mlog.reshape(-1)])
+    r, c = matrix.shape
+    mul = gf.mul_table()[matrix]                     # (r, c, 256)
+    v = np.arange(8)
+    tab = np.zeros((r, c, 4 * GF_TAB_WORDS), dtype=np.uint8)
+    tab[..., 0:8] = mul[..., v]
+    tab[..., 8:16] = mul[..., v << 3]
+    tab[..., 16:20] = mul[..., v[:4] << 6]
+    return tab.view("<u4")
+
+
+def gf_layout(r: int, c: int, fused: bool = False) -> int:
+    """Shared-memory bytes of a gf_encode.cu block for an (r, c) matrix:
+    the product tables; in the fused mode also the CRC fold's tables, its
+    range CRCs and the r + c staged segments.  Raises ValueError when
+    they do not fit."""
+    smem = r * c * 4 * GF_TAB_WORDS
+    if fused:
+        parts = -(-(c + r) // CRC_COLS) * CRC_WARPS * CRC_COLS
+        smem += 4 * (CRC_SMEM_WORDS + parts) + (r + c) * CRC_STRIDE
+    if smem > GF_SMEM_MAX:
+        raise ValueError(f"gf_encode: matrix {r}x{c} exceeds the kernel's "
+                         f"shared memory ({smem} > {GF_SMEM_MAX} bytes)")
+    return smem
 
 
 def _columns(mat: np.ndarray) -> np.ndarray:
@@ -189,12 +230,69 @@ def _columns(mat: np.ndarray) -> np.ndarray:
         np.uint32)
 
 
+def nibble_tables(mat: np.ndarray) -> np.ndarray:
+    """32x32 GF(2) matrix -> (8, 16) uint32: N[i, v] = M @ bits(v << 4i),
+    so M @ bits(x) = XOR_i N[i, (x >> 4i) & 15]."""
+    cols = _columns(mat)
+    v = np.arange(16)
+    out = np.zeros((8, 16), dtype=np.uint32)
+    for i in range(8):
+        for b in range(4):
+            out[i] ^= np.where((v >> b) & 1, cols[4 * i + b], 0).astype(
+                np.uint32)
+    return out
+
+
+def message_bits(nbytes: int) -> np.ndarray:
+    """(32, 8 nbytes) 0/1: column 8p + b is the CRC (seed 0) of a message
+    of `nbytes` bytes holding only bit b of byte p -- crc32c's
+    message_matrix, built from the end of the message backwards with one
+    byte step per position."""
+    step = crc_mod.advance_matrix(1).astype(np.int64)
+    cur = np.stack([crc_mod._u32_to_bits(crc_mod.crc32c_sw(0, bytes([1 << b])))
+                    for b in range(8)], axis=1).astype(np.int64)   # (32, 8)
+    out = np.zeros((32, 8 * nbytes), dtype=np.uint8)
+    for p in range(nbytes - 1, -1, -1):
+        out[:, 8 * p:8 * p + 8] = cur
+        cur = (step @ cur) % 2
+    return out
+
+
+def crc_mma_fragments() -> np.ndarray:
+    """The A fragments of csrc/crc_seg.cuh's tensor-core fold, (2, 16, 32,
+    4) uint32 [row tile, K-slice, lane, register]: the bits of the 512-byte
+    message matrix in the mma.m16n8k256 .b1 layout, paired with the bytes
+    each lane loads.  Register j of lane (g, t) for tile T and slice
+    s = 4k + s' holds CRC bit 16T + g (+8 for j = 1, 3) against the 32
+    message bits of the word lane t loads as b0 (j = 0, 1) or b1 (j = 2,
+    3): bytes 128k + 32t + 8s' (+4 for b1) onwards."""
+    M = message_bits(CRC_RANGE).astype(np.uint64)           # (32, 4096)
+    weights = np.uint64(1) << np.arange(32, dtype=np.uint64)
+    out = np.zeros((2, CRC_SLICES, 32, 4), dtype=np.uint32)
+    lanes = np.arange(32)
+    g, t = lanes >> 2, lanes & 3
+    for tile in range(2):
+        for s in range(CRC_SLICES):
+            k, s1 = divmod(s, 4)
+            for j in range(4):
+                rows = 16 * tile + g + (8 if j in (1, 3) else 0)
+                o = CRC_BLOCK * k + 32 * t + 8 * s1 + (4 if j >= 2 else 0)
+                cols = 8 * o[:, None] + np.arange(32)
+                out[tile, s, :, j] = (M[rows[:, None], cols]
+                                      * weights).sum(1).astype(np.uint32)
+    return out
+
+
 def crc_tables() -> np.ndarray:
-    """crc32c.cu's table block: slicing-by-8 tables, then the column
-    words of adv_128, adv_256, ..., adv_4096."""
-    adv = [_columns(crc_mod.advance_matrix(_CRC_LANE << i))
-           for i in range(6)]
-    return np.concatenate([crc_mod._slice8_tables().reshape(-1)] + adv)
+    """The CRC table block of csrc/crc_seg.cuh: the tensor-core fold's A
+    fragments, the range tails adv_{512 j}, j = 1..7, and the chain
+    advances adv_4096 * 2^e, e = 0..19 (each advance as nibble tables)."""
+    tails = [nibble_tables(crc_mod.advance_matrix(CRC_RANGE * j))
+             for j in range(1, CRC_WARPS)]
+    chain = [nibble_tables(crc_mod.advance_matrix(CRC_SEG << e))
+             for e in range(CRC_CHAIN_LEVELS)]
+    return np.concatenate([crc_mma_fragments().reshape(-1)]
+                          + [t.reshape(-1) for t in tails + chain])
 
 
 _consts: dict[tuple, ec_kernels._DeviceConst] = {}
@@ -216,6 +314,24 @@ def _on_device(key: tuple, build_fn, device: torch.device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _gf_tables_on(matrix: np.ndarray, device: torch.device) -> torch.Tensor:
+    return _on_device(("gf", matrix.shape, matrix.tobytes()),
+                      lambda: gf_params(matrix), device)
+
+
+def _gf_launch(matrix: np.ndarray, data: torch.Tensor,
+               out: torch.Tensor) -> None:
+    """gf_encode.cu's plain mode on data (B, c, L) into out (B, r, L)."""
+    B, c, L = data.shape
+    fn = _lib("gf_encode").ceph_gf_encode
+    with torch.cuda.device(data.device):
+        err = fn(data.data_ptr(), out.data_ptr(),
+                 _gf_tables_on(matrix, data.device).data_ptr(),
+                 B, matrix.shape[0], c, L, _stream(data.device))
+    _raise_on(err, "gf_encode")
+    launches["gf_encode"] += 1
+
+
 def gf_transform(matrix: np.ndarray, data: torch.Tensor,
                  compute: str = DEFAULT_COMPUTE) -> torch.Tensor:
     """(r, c) GF(2^8) matrix x data (B, c, L) uint8 -> (B, r, L) uint8 on
@@ -230,53 +346,115 @@ def gf_transform(matrix: np.ndarray, data: torch.Tensor,
     if data.device.type == "cpu":
         return ec_kernels.gf2_matmul_bytes(
             gf.expand_bitmatrix(matrix, 8), data, compute)
-    if 768 + r * c > _GF_MAX_PARAMS:
-        raise ValueError(f"gf_transform: matrix {r}x{c} exceeds the "
-                         "kernel's shared-memory budget")
+    gf_layout(r, c)
     B, _, L = data.shape
     out = torch.empty((B, r, L), dtype=torch.uint8, device=data.device)
     if out.numel() == 0:
         return out
-    params = _on_device(("gf", matrix.shape, matrix.tobytes()),
-                        lambda: gf_params(matrix), data.device)
-    fn = _lib("gf_encode").ceph_gf_encode
-    with torch.cuda.device(data.device):
-        err = fn(data.data_ptr(), out.data_ptr(), params.data_ptr(),
-                 B, r, c, L, _stream(data.device))
-    _raise_on(err, "gf_encode")
-    launches["gf_encode"] += 1
+    _gf_launch(matrix, data, out)
     return out
 
 
-def _crc_launch(rows: torch.Tensor, out: torch.Tensor, per: int,
-                stride: int, offset: int) -> None:
-    """CRCs of rows (N, L) on the card into out (int32 storage) at
-    (n // per) * stride + offset + n % per."""
-    N, L = rows.shape
-    if N == 0:
-        return
+def _segments(L: int) -> int:
     nseg = -(-L // CRC_SEG)
-    seg = torch.empty(N * nseg, dtype=torch.int32, device=rows.device)
-    tables = _on_device(("crc",), crc_tables, rows.device)
-    fn = _lib("crc32c").ceph_crc32c_rows
-    with torch.cuda.device(rows.device):
-        err = fn(rows.data_ptr(), N, L, seg.data_ptr(), out.data_ptr(),
-                 per, stride, offset, tables.data_ptr(),
-                 _stream(rows.device))
-    _raise_on(err, "crc32c")
-    launches["crc32c"] += 1
+    if nseg > CRC_MAX_SEGMENTS:
+        raise ValueError(f"crc32c: rows of {L} bytes exceed the chain "
+                         f"pass's {CRC_MAX_SEGMENTS} segments")
+    return nseg
+
+
+def _crc_tables_on(device: torch.device) -> torch.Tensor:
+    return _on_device(("crc",), crc_tables, device)
+
+
+def gf_encode_segment_crcs(matrix: np.ndarray, data: torch.Tensor,
+                           compute: str = DEFAULT_COMPUTE
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """gf_encode.cu's fused mode: (r, c) matrix x data (B, c, L) ->
+    (out (B, r, L) uint8, segment CRCs (B, c + r, ceil(L / 4096))
+    uint32 of the c data rows then the r output rows; see
+    ``ec_kernels.segment_crcs`` for the segments)."""
+    matrix = np.ascontiguousarray(matrix, dtype=np.uint8)
+    r, c = matrix.shape
+    _check_u8(data, 3, "gf_encode_segment_crcs")
+    if data.shape[1] != c:
+        raise ValueError(f"gf_encode_segment_crcs: matrix has {c} "
+                         f"columns, data has {data.shape[1]} chunks")
+    B, _, L = data.shape
+    nseg = _segments(L)
+    if data.device.type == "cpu":
+        out = ec_kernels.gf2_matmul_bytes(gf.expand_bitmatrix(matrix, 8),
+                                          data, compute)
+        return out, ec_kernels.segment_crcs(torch.cat([data, out], 1),
+                                            CRC_SEG, compute)
+    gf_layout(r, c, fused=True)
+    out = torch.empty((B, r, L), dtype=torch.uint8, device=data.device)
+    seg = torch.empty((B, c + r, nseg), dtype=torch.int32,
+                      device=data.device)
+    if B and r:
+        fn = _lib("gf_encode").ceph_gf_encode_crc
+        with torch.cuda.device(data.device):
+            err = fn(data.data_ptr(), out.data_ptr(),
+                     _gf_tables_on(matrix, data.device).data_ptr(),
+                     B, r, c, L, _crc_tables_on(data.device).data_ptr(),
+                     seg.data_ptr(), _stream(data.device))
+        _raise_on(err, "gf_encode_crc")
+        launches["gf_encode_crc"] += 1
+    return out, seg.view(torch.uint32)
+
+
+def crc32c_segments(rows: torch.Tensor,
+                    compute: str = DEFAULT_COMPUTE) -> torch.Tensor:
+    """crc32c.cu pass 1: (N, L) uint8 -> (N, ceil(L / 4096)) uint32
+    segment CRCs (``ec_kernels.segment_crcs``)."""
+    _check_u8(rows, 2, "crc32c_segments")
+    N, L = rows.shape
+    nseg = _segments(L)
+    if rows.device.type == "cpu":
+        return ec_kernels.segment_crcs(rows, CRC_SEG, compute)
+    seg = torch.empty((N, nseg), dtype=torch.int32, device=rows.device)
+    if N:
+        fn = _lib("crc32c").ceph_crc32c_segments
+        with torch.cuda.device(rows.device):
+            err = fn(rows.data_ptr(), N, L, seg.data_ptr(),
+                     _crc_tables_on(rows.device).data_ptr(),
+                     _stream(rows.device))
+        _raise_on(err, "crc32c_segments")
+        launches["crc32c_segments"] += 1
+    return seg.view(torch.uint32)
+
+
+def crc32c_chain(seg: torch.Tensor) -> torch.Tensor:
+    """crc32c.cu pass 2: segment CRCs (N, nseg) uint32 of consecutive
+    4 KiB segments -> (N,) uint32 CRCs of the rows they make up."""
+    if not isinstance(seg, torch.Tensor) or seg.dtype != torch.uint32:
+        raise TypeError("crc32c_chain: want a uint32 tensor")
+    if seg.ndim != 2 or not seg.is_contiguous() or seg.shape[1] == 0:
+        raise ValueError(f"crc32c_chain: want contiguous (N, nseg), got "
+                         f"{tuple(seg.shape)}")
+    N, nseg = seg.shape
+    _segments(nseg * CRC_SEG)
+    if seg.device.type == "cpu":
+        return ec_kernels.chain_crcs(seg, CRC_SEG)
+    out = torch.empty(N, dtype=torch.int32, device=seg.device)
+    if N:
+        fn = _lib("crc32c").ceph_crc32c_chain
+        with torch.cuda.device(seg.device):
+            err = fn(seg.data_ptr(), N, nseg, out.data_ptr(), 1, 1, 0,
+                     _crc_tables_on(seg.device).data_ptr(),
+                     _stream(seg.device))
+        _raise_on(err, "crc32c_chain")
+        launches["crc32c_chain"] += 1
+    return out.view(torch.uint32)
 
 
 def crc32c_rows(rows: torch.Tensor,
                 compute: str = DEFAULT_COMPUTE) -> torch.Tensor:
     """CRC32C (seed 0) per row: (N, L) uint8 -> (N,) uint32."""
     _check_u8(rows, 2, "crc32c_rows")
-    N, L = rows.shape
     if rows.device.type == "cpu":
-        return ec_kernels.make_crc_fn(L, compute=compute)(rows)
-    out = torch.empty(N, dtype=torch.int32, device=rows.device)
-    _crc_launch(rows, out, 1, 1, 0)
-    return out.view(torch.uint32)
+        return ec_kernels.make_crc_fn(rows.shape[1], compute=compute)(rows)
+    return crc32c_chain(crc32c_segments(rows))
 
 
 def make_encode_fn(matrix: np.ndarray, L: int | None = None,
@@ -315,18 +493,14 @@ def make_encode_crc_fn(matrix: np.ndarray, L: int,
 
     def run(data):
         _check_u8(data, 3, "encode_crc")
-        B = data.shape[0]
         if data.shape[1:] != (k, L):
             raise ValueError(f"encode_crc: want (B, {k}, {L}), got "
                              f"{tuple(data.shape)}")
         if data.device.type == "cpu":
             return ec_kernels.make_encode_crc_fn(matrix, L,
                                                  compute=compute)(data)
-        parity = gf_transform(matrix, data, compute)
-        crcs = torch.empty((B, k + m), dtype=torch.int32,
-                           device=data.device)
-        _crc_launch(data.view(B * k, L), crcs, k, k + m, 0)
-        _crc_launch(parity.view(B * m, L), crcs, m, k + m, k)
-        return parity, crcs.view(torch.uint32)
+        parity, seg = gf_encode_segment_crcs(matrix, data)
+        crcs = crc32c_chain(seg.view(-1, seg.shape[-1]))
+        return parity, crcs.view(data.shape[0], k + m)
 
     return batched(run)

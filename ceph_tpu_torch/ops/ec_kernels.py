@@ -233,6 +233,7 @@ def make_bits_codec_fn(bits: np.ndarray, w: int, packetsize: int,
 
 DEFAULT_CRC_BLOCK = 16
 CRC_GROUP = 64
+_SEGMENTS_PER_CALL = 4096
 
 
 def _pick_block(nbytes: int) -> int:
@@ -299,6 +300,47 @@ def make_crc_fn(nbytes: int, block: int = DEFAULT_CRC_BLOCK,
         block = _pick_block(nbytes)
     fn = _crc_fn(nbytes, block, compute)
     return lambda chunks: fn(as_u8(chunks))
+
+
+def segment_crcs(rows: torch.Tensor, seg_len: int,
+                 compute: str = DEFAULT_COMPUTE) -> torch.Tensor:
+    """CRC32C (seed 0) of each `seg_len`-byte segment of each row, the
+    segments counted from the row's end and the first front-padded with
+    zeros (which leave a seed-0 CRC at 0): (..., L) uint8 ->
+    (..., ceil(L / seg_len)) uint32.  ``chain_crcs`` joins them back into
+    the row's CRC."""
+    rows = as_u8(rows)
+    L = rows.shape[-1]
+    nseg = -(-L // seg_len)
+    pad = nseg * seg_len - L
+    if pad:
+        rows = torch.cat([rows.new_zeros(rows.shape[:-1] + (pad,)), rows],
+                         dim=-1)
+    # a few thousand segments per call bound the contraction's temporaries
+    segs = rows.reshape(-1, seg_len)
+    if not segs.shape[0]:
+        return rows.new_zeros(rows.shape[:-1] + (nseg,),
+                              dtype=torch.int32).view(torch.uint32)
+    crc = make_crc_fn(seg_len, compute=compute)
+    out = torch.cat([crc(segs[i:i + _SEGMENTS_PER_CALL])
+                     for i in range(0, segs.shape[0], _SEGMENTS_PER_CALL)])
+    return out.reshape(rows.shape[:-1] + (nseg,))
+
+
+def chain_crcs(seg_crcs: torch.Tensor, seg_len: int) -> torch.Tensor:
+    """CRCs of consecutive `seg_len`-byte segments -> the CRC of their
+    join: (..., nseg) uint32 -> (...) uint32, crc <- adv(crc) ^ next, with
+    adv the advance over `seg_len` zero bytes."""
+    dev = seg_crcs.device
+    adv = torch.as_tensor(crc_mod.advance_matrix(seg_len), device=dev)
+    shifts = torch.arange(32, dtype=torch.int64, device=dev)
+    bits = (seg_crcs.view(torch.int32).to(torch.int64).unsqueeze(-1)
+            >> shifts) & 1                                 # (..., nseg, 32)
+    state = torch.zeros_like(bits[..., 0, :])
+    for s in range(bits.shape[-2]):
+        state = _contract(adv, state.unsqueeze(-1), torch.int32)[..., 0]
+        state = (state + bits[..., s, :]) & 1
+    return to_u32((state << shifts).sum(-1))
 
 
 # ---------------------------------------------------------------------------

@@ -8,10 +8,15 @@ batches: 256 MiB of data, 96 MiB of parity on the device):
 
   1. device and build: the card's name and power limit, the kernels
      built from ceph_tpu_torch/csrc with nvcc;
-  2. each CUDA kernel against its plain PyTorch version on the same
-     device tensors (byte-exact), at the main-path shape and at a ragged
-     one, with CUDA-event times beside the memory bound, the plain
-     version and a device-to-device copy of the same bytes;
+  2. each CUDA kernel entry point (gf_encode.cu plain and fused modes,
+     crc32c.cu's segment and chain passes), the row CRC, the fused
+     encode+CRC pass and the rebuild decode against their plain PyTorch
+     versions on the same device tensors (byte-exact), at the main-path
+     shape, at the 4 KiB stripe unit's (2048, 8, 4096) and at a ragged
+     one, with CUDA-event times at the first two beside the bound, the
+     plain version and a device-to-device copy of the bound's bytes, and
+     the fused pass's device-bytes model; then the encode, fused pass and
+     decode of the k=2 m=1, k=4 m=2 and k=12 m=4 profiles, byte-exact;
   3. the codec through the registry (plugin "tpu", host_cutover pinned
      to the device): fused encode+CRC and a three-erasure rebuild,
      checked against the host oracle (native GF + CRC32C);
@@ -27,7 +32,6 @@ prints no result.
 from __future__ import annotations
 
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -35,12 +39,18 @@ import time
 import numpy as np
 import torch
 
+from ceph_tpu_torch.tools.kernel_probe import time_ms
+
 SEED = 20261016
 K, M, L_MAIN, B_MAIN = 8, 3, 1 << 20, 32
+STRIPE_UNIT = (2048, 4096)           # (B, L) at the 4 KiB stripe unit
 RAGGED = (3, 1000)                   # (B, L)
 ERASED = (0, 4, 9)
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory
 NONTENSOR_OPS_PER_S = 67e12          # H100 SXM outside the tensor cores
+PROFILES = ((2, 1), (4, 2), (12, 4))  # (k, m) checked beside k=8 m=3
+PROFILE_SHAPE = (64, 1 << 16)        # (B, L)
+SEG = 4096                           # bytes per CRC segment
 TIMED_RUNS = 10
 PLAIN_RUNS = 3
 WARM_TIMEOUT_S = 300.0
@@ -64,24 +74,9 @@ def rand_u8(shape, gen, device) -> torch.Tensor:
                          device=device)
 
 
-def time_ms(fn, inputs) -> float:
-    """Median CUDA-event time of fn(x) over distinct inputs, after one
-    warm-up launch."""
-    fn(inputs[0])
-    torch.cuda.synchronize()
-    times = []
-    for x in inputs:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn(x)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def max_abs_err(a, b) -> int:
+    if isinstance(a, tuple):
+        return max(max_abs_err(x, y) for x, y in zip(a, b, strict=True))
     a, b = (t.view(torch.int32).to(torch.int64) if t.dtype == torch.uint32
             else t.to(torch.int64) for t in (a, b))
     if a.shape != b.shape:
@@ -94,54 +89,98 @@ def copy_ms(nbytes: int, device) -> float:
     writes half): the bandwidth yardstick."""
     src = torch.empty(nbytes // 2, dtype=torch.uint8, device=device)
     dst = torch.empty_like(src)
-    return time_ms(lambda s: dst.copy_(s), [src] * TIMED_RUNS)
+    return time_ms(lambda s: dst.copy_(s), [src] * TIMED_RUNS)["ms"]
+
+
+def bytes_bound_ms(nbytes: int) -> float:
+    return nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def bound(nbytes: int, ops: int) -> tuple[float, str]:
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_bytes = bytes_bound_ms(nbytes)
     by_ops = ops / NONTENSOR_OPS_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
 
 
-def phase_kernels(device, gen, cuda_ec, ec_kernels, gf):
-    """Every kernel against its plain version at the main-path shape and
-    a ragged one; returns per-kernel timing rows."""
-    coding = gf.reed_sol_van_matrix(K, M)
-    present = [i for i in range(K + M) if i not in ERASED][:K]
-    want = [i for i in ERASED if i < K]
-    inv = gf.decode_matrix(gf.systematic_generator(coding, K), K, present)
-    dmat = inv[want]
-    rows = {}
-    for B, L in ((B_MAIN, L_MAIN), RAGGED):
-        main = (B, L) == (B_MAIN, L_MAIN)
-        inputs = [rand_u8((B, K, L), gen, device)
-                  for _ in range(TIMED_RUNS if main else 2)]
-        x = inputs[0]
-        enc = cuda_ec.make_encode_fn(coding, L)
-        crc = cuda_ec.make_crc_fn(L)
-        fused = cuda_ec.make_encode_crc_fn(coding, L)
-        dec = cuda_ec.make_encode_fn(dmat, L)
-        plain_enc = ec_kernels.make_codec_fn(coding)
-        plain_crc = ec_kernels.make_crc_fn(L)
-        plain_fused = ec_kernels.make_encode_crc_fn(coding, L)
-        plain_dec = ec_kernels.make_codec_fn(dmat)
+def fused_device_bytes(B: int, L: int) -> dict:
+    """Device traffic of one fused encode+CRC pass, by design: the data
+    read once, the parity written once, the segment CRCs written and read
+    back by the chain pass, the row CRCs written; beside it a two-launch
+    composition (encode, then CRC launches that re-read data and parity)
+    and the bound's bytes."""
+    nseg = -(-L // SEG)
+    crcs = 4 * B * (K + M)
+    return {"model": B * K * L + B * M * L + 2 * crcs * nseg + crcs,
+            "two_launch_model": 2 * (B * K * L + B * M * L)
+            + 2 * crcs * nseg + crcs,
+            "bound": B * (K + M) * L + crcs}
 
-        parity = enc(x)
-        allc = torch.cat([x, parity], dim=1)
-        survivors = allc[:, present].contiguous()
-        flat = x.view(B * K, L)
-        checks = {
-            "gf_encode": (parity, plain_enc(x)),
-            "crc32c": (crc(flat), plain_crc(flat)),
-            "gf_decode": (dec(survivors), plain_dec(survivors)),
+
+def rebuild_matrix(gf, coding, k, m, erased):
+    """Decode rows for the erased data chunks, and the chunks read."""
+    present = [i for i in range(k + m) if i not in erased][:k]
+    want = [i for i in erased if i < k]
+    inv = gf.decode_matrix(gf.systematic_generator(coding, k), k, present)
+    return inv[want], present, want
+
+
+def phase_kernels(device, gen, cuda_ec, ec_kernels, gf):
+    """Every kernel entry point and composite against its plain version at
+    the main-path shape, the 4 KiB stripe unit's and a ragged one;
+    returns per-kernel timing rows per timed shape."""
+    coding = gf.reed_sol_van_matrix(K, M)
+    dmat, present, want = rebuild_matrix(gf, coding, K, M, ERASED)
+    W = len(want)
+    rows = {}
+    for B, L in ((B_MAIN, L_MAIN), STRIPE_UNIT, RAGGED):
+        timed = (B, L) != RAGGED
+        inputs = [rand_u8((B, K, L), gen, device)
+                  for _ in range(TIMED_RUNS if timed else 2)]
+        x = inputs[0]
+        N, NC, nseg = B * K, B * (K + M), -(-L // SEG)
+        enc = cuda_ec.make_encode_fn(coding, L)
+        plain_enc = ec_kernels.make_codec_fn(coding)
+
+        def plain_enc_seg(t):
+            p = plain_enc(t)
+            return p, ec_kernels.segment_crcs(torch.cat([t, p], 1), SEG)
+
+        flats = [t.view(N, L) for t in inputs]
+        surv = [torch.cat([t, enc(t)], 1)[:, present].contiguous()
+                for t in inputs]
+        segs = [cuda_ec.gf_encode_segment_crcs(coding, t)[1].view(NC, nseg)
+                for t in inputs]
+        fb = fused_device_bytes(B, L)
+        gf_ops, crc_ops = B * M * K * L, B * (K + M) * L
+        work = {
+            # name: (kernel fn, plain fn, inputs, bytes, ops)
+            "gf_encode": (enc, plain_enc, inputs, B * (K + M) * L, gf_ops),
+            "gf_encode_crc": (
+                lambda t: cuda_ec.gf_encode_segment_crcs(coding, t),
+                plain_enc_seg, inputs, B * (K + M) * L + 4 * NC * nseg,
+                gf_ops + crc_ops),
+            "crc32c_segments": (
+                cuda_ec.crc32c_segments,
+                lambda r: ec_kernels.segment_crcs(r, SEG), flats,
+                N * L + 4 * N * nseg, N * L),
+            # an advance is 8 table lookups and 8 XORs
+            "crc32c_chain": (
+                cuda_ec.crc32c_chain,
+                lambda s: ec_kernels.chain_crcs(s, SEG), segs,
+                4 * NC * nseg + 4 * NC, 16 * NC * nseg),
+            "crc32c": (cuda_ec.make_crc_fn(L), ec_kernels.make_crc_fn(L),
+                       flats, N * L + 4 * N, N * L),
+            "encode_crc": (cuda_ec.make_encode_crc_fn(coding, L),
+                           ec_kernels.make_encode_crc_fn(coding, L),
+                           inputs, fb["bound"], gf_ops + crc_ops),
+            "gf_decode": (cuda_ec.make_encode_fn(dmat, L),
+                          ec_kernels.make_codec_fn(dmat), surv,
+                          B * (K + W) * L, B * W * K * L),
         }
-        fp, fc = fused(x)
-        pp, pc = plain_fused(x)
-        checks["encode_crc"] = (fp, pp)
-        errs = {name: max_abs_err(a, b) for name, (a, b) in checks.items()}
-        errs["encode_crc"] = max(errs["encode_crc"], max_abs_err(fc, pc))
-        if not torch.equal(checks["gf_decode"][0], x[:, want]):
+        errs = {name: max_abs_err(fn(xs[0]), plain(xs[0]))
+                for name, (fn, plain, xs, _, _) in work.items()}
+        if not torch.equal(work["gf_decode"][0](surv[0]), x[:, want]):
             raise AssertionError(f"rebuild of {want} at {(B, L)} is wrong")
         torch.cuda.synchronize()
         bad = {n: e for n, e in errs.items() if e}
@@ -149,35 +188,59 @@ def phase_kernels(device, gen, cuda_ec, ec_kernels, gf):
             raise AssertionError(f"kernel != plain at {(B, L)}: {bad}")
         emit("kernels_vs_plain", shape=[B, K, L], tolerance=0,
              max_abs_err=errs)
-        if not main:
+        if not timed:
             continue
 
-        flats = [t.view(B * K, L) for t in inputs]
-        surv = [torch.cat([t, enc(t)], 1)[:, present].contiguous()
-                for t in inputs]
-        N = B * K
-        work = {
-            # name: (kernel fn, its inputs, plain fn, bytes, ops)
-            "gf_encode": (enc, inputs, plain_enc,
-                          B * (K + M) * L, B * M * K * L),
-            "crc32c": (crc, flats, plain_crc, N * L + 4 * N, N * L),
-            "encode_crc": (fused, inputs, plain_fused,
-                           B * (K + M) * L + 4 * B * (K + M),
-                           B * M * K * L + B * (K + M) * L),
-            "gf_decode": (dec, surv, plain_dec,
-                          B * (K + len(want)) * L, B * len(want) * K * L),
-        }
-        for name, (fn, xs, plain, nbytes, ops) in work.items():
+        shape_rows = rows[(B, L)] = {}
+        for name, (fn, plain, xs, nbytes, ops) in work.items():
             b_ms, b_by = bound(nbytes, ops)
-            rows[name] = {
-                "ms": time_ms(fn, xs),
-                "plain_ms": time_ms(plain, xs[:PLAIN_RUNS]),
+            t = time_ms(fn, xs)
+            shape_rows[name] = {
+                "ms": t["ms"], "b2b_ms": t["b2b_ms"],
+                "plain_ms": time_ms(plain, xs[:PLAIN_RUNS])["ms"],
                 "copy_ms": copy_ms(nbytes, device),
                 "bound_ms": b_ms, "bound_by": b_by,
                 "max_abs_err": errs[name],
             }
-            emit("kernel_time", name=name, shape=[B, K, L], **rows[name])
+            emit("kernel_time", name=name, shape=[B, K, L],
+                 **shape_rows[name])
+        emit("fused_bytes", shape=[B, K, L],
+             device_bytes_model=fb["model"],
+             device_mib_model=fb["model"] / 2**20,
+             two_launch_mib_model=fb["two_launch_model"] / 2**20,
+             bound_mib=fb["bound"] / 2**20,
+             bound_ms=bytes_bound_ms(fb["bound"]),
+             ms=shape_rows["encode_crc"]["ms"])
+        del inputs, flats, surv, segs, x, work
     return rows
+
+
+def phase_profiles(device, gen, cuda_ec, ec_kernels, gf):
+    """The encode, the fused pass and a rebuild of as many data chunks as
+    there are parity chunks, for the other profiles (one row and column
+    group, and the generic kernels past 8 columns), byte-exact."""
+    for k, m in PROFILES:
+        coding = gf.reed_sol_van_matrix(k, m)
+        dmat, present, want = rebuild_matrix(gf, coding, k, m,
+                                             tuple(range(m)))
+        for B, L in (PROFILE_SHAPE, RAGGED):
+            x = rand_u8((B, k, L), gen, device)
+            parity = cuda_ec.make_encode_fn(coding, L)(x)
+            surv = torch.cat([x, parity], 1)[:, present].contiguous()
+            errs = {
+                "gf_encode": max_abs_err(
+                    parity, ec_kernels.make_codec_fn(coding)(x)),
+                "encode_crc": max_abs_err(
+                    cuda_ec.make_encode_crc_fn(coding, L)(x),
+                    ec_kernels.make_encode_crc_fn(coding, L)(x)),
+                "gf_decode": max_abs_err(
+                    cuda_ec.make_encode_fn(dmat, L)(surv), x[:, want]),
+            }
+            torch.cuda.synchronize()
+            if any(errs.values()):
+                raise AssertionError(f"k={k} m={m} at {(B, L)}: {errs}")
+            emit("profile_vs_plain", k=k, m=m, shape=[B, k, L],
+                 tolerance=0, max_abs_err=errs)
 
 
 def wait_warm(get_fn, what: str):
@@ -192,8 +255,11 @@ def wait_warm(get_fn, what: str):
         time.sleep(0.05)
 
 
-ENCODE_LAUNCHES = {"gf_encode": 1, "crc32c": 2}    # the fused pass
-DECODE_LAUNCHES = {"gf_encode": 1, "crc32c": 0}
+# per fused encode: gf_encode.cu once (fused mode), crc32c.cu once (chain)
+ENCODE_LAUNCHES = {"gf_encode": 0, "gf_encode_crc": 1, "crc32c_segments": 0,
+                   "crc32c_chain": 1}
+DECODE_LAUNCHES = {"gf_encode": 1, "gf_encode_crc": 0, "crc32c_segments": 0,
+                   "crc32c_chain": 0}
 
 
 def counted(cuda_ec, tally, expect, what, fn):
@@ -315,11 +381,15 @@ def phase_objects(rng, codec, ecutil, crc_mod, cuda_ec, tally):
              note="host clock, whole ecutil call")
 
 
+# the kernels of the main path (crc32c_segments, the scrub CRC of rows
+# alone, is not on it: phase 2 holds and times it)
 KERNEL_META = {
     "gf_encode": ("ceph_tpu_torch/csrc/gf_encode.cu",
                   "ceph_tpu/ops/pallas_ec.py:55"),
-    "crc32c": ("ceph_tpu_torch/csrc/crc32c.cu",
-               "ceph_tpu/ops/pallas_ec.py:167"),
+    "gf_encode_crc": ("ceph_tpu_torch/csrc/gf_encode.cu",
+                      "ceph_tpu/ops/pallas_ec.py:55"),
+    "crc32c_chain": ("ceph_tpu_torch/csrc/crc32c.cu",
+                     "ceph_tpu/ops/pallas_ec.py:167"),
 }
 
 
@@ -346,14 +416,18 @@ def main() -> int:
 
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
-    rows = phase_kernels(device, gen, cuda_ec, ec_kernels, gf)
+    rows = phase_kernels(device, gen, cuda_ec, ec_kernels, gf)[
+        (B_MAIN, L_MAIN)]
+    phase_profiles(device, gen, cuda_ec, ec_kernels, gf)
 
     # main path: each op is counted on its own, warm-ups excluded
     rng = np.random.default_rng(SEED)
     counts = dict.fromkeys(cuda_ec.launches, 0)
     codec = phase_codec(rng, registry, native, crc_mod, cuda_ec, counts)
     phase_objects(rng, codec, ecutil, crc_mod, cuda_ec, counts)
-    emit("main_path_launches", launches=counts)
+    by_source = {src: sum(n for name, n in counts.items()
+                          if name.startswith(src)) for src in cuda_ec.SOURCES}
+    emit("main_path_launches", launches=counts, by_source=by_source)
     idle = [n for n in KERNEL_META if counts[n] < 1]
     if idle:
         raise AssertionError(f"kernels not launched on the main path: {idle}")
@@ -367,7 +441,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
-            "copy_ms": r["copy_ms"]})
+            "b2b_ms": r["b2b_ms"], "copy_ms": r["copy_ms"]})
     print(ident, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
