@@ -5,7 +5,9 @@ for NVIDIA Hopper (sm_90a).
 Layout mirrors the JAX package so each module's counterpart is easy to
 find:
   ops/       GF(2^8) and CRC32C host math, plain PyTorch transforms
-             (ec_kernels) and the CUDA kernel wrappers (cuda_ec)
+             (ec_kernels), the CUDA kernel wrappers (cuda_ec), the EC
+             dispatch pipeline on CUDA streams (pipeline) and the HBM
+             stripe cache (hbm_cache)
   csrc/      CUDA C++ sources, built with nvcc at first use
   erasure/   erasure-code plugin framework (tpu/jerasure/isa/shec/lrc)
   osd/       stripe math + whole-object encode/decode (ecutil)

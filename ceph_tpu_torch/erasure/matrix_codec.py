@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..ops import gf
+from ..ops import pipeline as ec_pipeline
 from .interface import CHUNK_ALIGN, ErasureCode, ErasureCodeError
 
 REP_BYTES = "bytes"
@@ -122,12 +123,6 @@ TECH_DEFAULT_W = {"liberation": 7, "blaum_roth": 6, "liber8tion": 8}
 # ---------------------------------------------------------------------------
 
 
-def _device_warm_key(device: torch.device) -> tuple:
-    """Readiness key of a device: a warm shape on one card says
-    nothing about another."""
-    return (device.type, device.index)
-
-
 class NumpyBackend:
     """Exact host math (native C++ region kernels when built, numpy
     otherwise); used by the jerasure/isa oracle plugins."""
@@ -171,9 +166,14 @@ class TorchBackend:
     On a CUDA device the byte transform and the fused encode+CRC pass
     launch the hand-written kernels of ``ops/cuda_ec.py``; the packet
     and bit-matrix transforms run the plain PyTorch versions of
-    ``ops/ec_kernels.py`` on the device.  Inputs and outputs are numpy:
-    chunks upload to the device, and only the outputs come back (parity
-    and CRCs, never the data shards).
+    ``ops/ec_kernels.py`` on the device.  The fns (``device_fn_if_ready``,
+    ``fused_fn_if_ready``) are tensor-level: a uint8 tensor on the device
+    in, tensors on that device out — what the dispatch pipeline's lanes
+    launch on their streams.  The synchronous numpy paths
+    (``apply_bytes`` and friends) wrap them with ``_on_host``: chunks
+    upload to the device, and only the outputs come back (parity and
+    CRCs, never the data shards), counted in ``bytes_h2d`` /
+    ``bytes_d2h``.
 
     Host/device routing is MEASURED, not hardcoded: per size bucket
     (power of two of payload bytes) the backend keeps an EMA of observed
@@ -210,6 +210,9 @@ class TorchBackend:
         self.bytes_d2h = 0
         # (path, bucket) -> {"spb": ema sec/byte, "n": samples}
         self._perf: dict[tuple[str, int], dict] = {}
+        # (bucket, lane index) -> per-lane service-time EMA (fed by the
+        # pipeline's collect path; cost-aware placement signal)
+        self._dev_perf: dict[tuple[int, int], dict] = {}
         self._calls = 0
         # a (fn, shape) pair is servable only after the kernel library
         # is built and one launch at that shape succeeded.  Warm-ups run
@@ -258,7 +261,6 @@ class TorchBackend:
                 w, packetsize = extra
                 fn = self._ek.make_packet_codec_fn(matrix, w, packetsize,
                                                    self.compute)
-            fn = self._on_host(fn)
             if len(self._fns) > 256:
                 # readiness is keyed on the fn cache: evicting one
                 # without the other would strand "ready" shapes whose
@@ -295,23 +297,71 @@ class TorchBackend:
             return host["spb"] < dev["spb"]
         return dev["spb"] <= host["spb"]
 
-    def record(self, path: str, nbytes: int, seconds: float) -> None:
-        """Feed one measured sample (`seconds` for `nbytes` of payload)
-        into the per-bucket EMA."""
+    def record(self, path: str, nbytes: int, seconds: float,
+               depth: int = 1, device=None) -> None:
+        """Feed one measured sample into the per-bucket EMA.
+
+        `seconds` is the AMORTIZED cost the caller observed: the
+        pipeline reports marginal service time for overlapped device
+        dispatches over the coalesced batch's bytes.  `depth`
+        (dispatches in flight when the sample landed) is tracked so the
+        crossover report can say at what concurrency the device path
+        won.  `device` (the pipeline lane index, when known) also feeds
+        per-(shape bucket, lane) EMAs."""
         key = (path, self._bucket(nbytes))
-        ent = self._perf.setdefault(key, {"spb": None, "n": 0})
+        ent = self._perf.setdefault(key, {"spb": None, "n": 0,
+                                          "depth": 1.0})
         ent["n"] += 1
         spb = seconds / max(nbytes, 1)
         ent["spb"] = spb if ent["spb"] is None else (
             0.7 * ent["spb"] + 0.3 * spb)
+        ent["depth"] = 0.7 * ent.get("depth", 1.0) + 0.3 * float(depth)
+        if device is not None and path == "dev":
+            dkey = (self._bucket(nbytes), device)
+            dent = self._dev_perf.setdefault(dkey, {"spb": None,
+                                                    "n": 0})
+            dent["n"] += 1
+            dent["spb"] = spb if dent["spb"] is None else (
+                0.7 * dent["spb"] + 0.3 * spb)
+
+    def crossover_estimate(self) -> int | None:
+        """Smallest measured payload bucket where the amortized device
+        sec/byte beats the host EMA; None while the host wins every
+        bucket both paths have samples for."""
+        perf = dict(self._perf)
+        for b in sorted({b for (_p, b) in perf}):
+            h = perf.get(("host", b))
+            d = perf.get(("dev", b))
+            if h and d and h["spb"] is not None and \
+                    d["spb"] is not None and d["spb"] <= h["spb"]:
+                return 1 << b
+        return None
+
+    def perf_snapshot(self) -> dict:
+        """Measured-routing EMAs keyed 'path:2^bucket', plus the
+        per-lane view keyed 'dev@<lane>:2^bucket' (perf dump)."""
+        out = {}
+        for (path, b), ent in sorted(dict(self._perf).items()):
+            spb = ent["spb"]
+            if spb is not None:
+                out[f"{path}:{1 << b}"] = {
+                    "sec_per_byte": spb, "n": ent["n"],
+                    "mean_depth": round(ent.get("depth", 1.0), 2)}
+        for (b, dev), ent in sorted(dict(self._dev_perf).items()):
+            if ent["spb"] is not None:
+                out[f"dev@{dev}:{1 << b}"] = {
+                    "sec_per_byte": ent["spb"], "n": ent["n"]}
+        return out
 
     def device_fn_if_ready(self, kind: str, matrix: np.ndarray,
-                           extra: tuple, shape: tuple):
-        """The device fn for (kind, matrix, shape) if it is warm, else
-        None after kicking off a background warm-up.
+                           extra: tuple, shape: tuple, device=None):
+        """The tensor-level device fn for (kind, matrix, shape) if it is
+        warm on `device` (default: this backend's), else None after
+        kicking off a background warm-up.
 
         Warm means the kernel library is built and one launch at this
-        shape on this backend's device succeeded.  Building the fn
+        shape on that device succeeded: readiness is per device, since
+        the pipeline's lanes may sit on several cards.  Building the fn
         ALSO stays off the caller's thread: the first use compiles the
         kernels with nvcc (seconds) and initializes the CUDA context —
         an OSD op must never pay that, so both happen on the warm
@@ -320,8 +370,9 @@ class TorchBackend:
         """
         import threading
 
+        device = self.device if device is None else torch.device(device)
         fkey = (kind, matrix.tobytes(), matrix.shape, *extra)
-        rkey = (fkey, shape, _device_warm_key(self.device))
+        rkey = (fkey, tuple(shape), ec_pipeline.device_warm_key(device))
         if rkey in self._ready:
             return self._fns.get(fkey)
         with self._warm_lock:
@@ -329,7 +380,7 @@ class TorchBackend:
             if err is not None:
                 raise RuntimeError(
                     f"device warm-up of {kind} at {shape} on "
-                    f"{self.device} failed: {type(err).__name__}: "
+                    f"{device} failed: {type(err).__name__}: "
                     f"{err}") from err
             if rkey in self._warming:
                 return None
@@ -338,7 +389,9 @@ class TorchBackend:
         def warm():
             try:
                 fn = self._fn(kind, matrix, *extra)
-                fn(np.zeros(shape, dtype=np.uint8))
+                fn(torch.zeros(shape, dtype=torch.uint8, device=device))
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
                 self._ready.add(rkey)
             except Exception as e:
                 # kept, not retried: the next dispatch of this shape
@@ -370,13 +423,7 @@ class TorchBackend:
         repeat (readiness is per shape; a stable shape set warms once
         per size bucket).  Host paths never pay this — callers pad only
         when dispatching to the device and slice the result."""
-        S = chunks.shape[0]
-        S_pad = 1 << (S - 1).bit_length() if S > 1 else 1
-        if S_pad == S:
-            return chunks
-        return np.concatenate(
-            [chunks, np.zeros((S_pad - S,) + chunks.shape[1:],
-                              dtype=np.uint8)])
+        return ec_pipeline.pad_batch(chunks)
 
     def apply_bytes(self, matrix: np.ndarray, chunks) -> np.ndarray:
         chunks = np.asarray(chunks, dtype=np.uint8)
@@ -388,6 +435,7 @@ class TorchBackend:
             dev_in = self.pad_batch(chunks) if chunks.ndim == 3 else chunks
             fn = self.device_fn_if_ready("bytes", matrix, (), dev_in.shape)
             if fn is not None:
+                fn = self._on_host(fn)
                 return self._timed(
                     "dev", chunks.nbytes,
                     lambda: np.asarray(fn(dev_in))[: chunks.shape[0]]
@@ -407,6 +455,7 @@ class TorchBackend:
             fn = self.device_fn_if_ready("packets", matrix, (w, packetsize),
                                          dev_in.shape)
             if fn is not None:
+                fn = self._on_host(fn)
                 return self._timed(
                     "dev", chunks.nbytes,
                     lambda: np.asarray(fn(dev_in))[: chunks.shape[0]]
@@ -425,6 +474,7 @@ class TorchBackend:
             fn = self.device_fn_if_ready("bits", bits, (w, packetsize),
                                          dev_in.shape)
             if fn is not None:
+                fn = self._on_host(fn)
                 return self._timed(
                     "dev", chunks.nbytes,
                     lambda: np.asarray(fn(dev_in))[: chunks.shape[0]]
@@ -433,9 +483,10 @@ class TorchBackend:
             "host", chunks.nbytes,
             lambda: self._host.apply_bits(bits, chunks, w, packetsize))
 
-    def fused_fn_if_ready(self, matrix: np.ndarray, shape: tuple):
+    def fused_fn_if_ready(self, matrix: np.ndarray, shape: tuple,
+                          device=None):
         return self.device_fn_if_ready("fused", matrix, (shape[-1],),
-                                       shape)
+                                       shape, device)
 
 
 # ---------------------------------------------------------------------------
@@ -601,43 +652,15 @@ class MatrixErasureCode(ErasureCode):
         return out
 
     def encode_stripes_with_crcs(self, stripes) -> tuple:
-        """Batched stripes, fused CRCs on the device path.
-
-        One dispatch encodes all S stripes AND computes the k+m scrub
-        CRCs per stripe (the north-star fused pass); the host path still
-        batches the matmul but folds CRCs with the table kernel.
-        """
+        """Batched stripes: one batched matmul for all S stripes, then
+        the k+m scrub CRCs per stripe folded on the host.  The tpu
+        plugin overrides this with the fused device pass through the
+        dispatch pipeline."""
         stripes = np.ascontiguousarray(stripes, dtype=np.uint8)
         if stripes.ndim != 3 or stripes.shape[1] != self.k:
             raise ErasureCodeError(f"want (S, {self.k}, L), "
                                    f"got {stripes.shape}")
-        if self.rep == REP_BYTES and isinstance(self.backend, TorchBackend):
-            fn = None
-            if self.backend.use_device(stripes.nbytes):
-                dev_in = self.backend.pad_batch(stripes)
-                fn = self.backend.fused_fn_if_ready(self.coding_matrix,
-                                                    dev_in.shape)
-            if fn is not None:
-                import time as _time
-                S = stripes.shape[0]
-                t0 = _time.perf_counter()
-                parity, crcs = fn(dev_in)
-                parity = np.asarray(parity)[:S]
-                crcs = np.asarray(crcs, dtype=np.uint32)[:S]
-                self.backend.record("dev", stripes.nbytes,
-                                    _time.perf_counter() - t0)
-                allc = np.concatenate([stripes, parity], axis=1)
-                self.stat_counters()["device_stripe_passes"] += 1
-                return allc, crcs
-            # explicit host fallback — routing through _apply here would
-            # re-decide per call and could run the encode on device
-            # WITHOUT the fused CRC, muddying both metrics and semantics
-            parity = self.backend._timed(
-                "host", stripes.nbytes,
-                lambda: np.asarray(self.backend._host.apply_bytes(
-                    self.coding_matrix, stripes)))
-        else:
-            parity = np.asarray(self._apply(self.coding_matrix, stripes))
+        parity = np.asarray(self._apply(self.coding_matrix, stripes))
         allc = np.concatenate([stripes, parity], axis=1)
         return self._finish_host_stripes(allc)
 

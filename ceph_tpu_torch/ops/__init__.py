@@ -1,2 +1,3 @@
 """Device + host math: GF(2^8), bit-matrices, CRC32C, the plain PyTorch
-transforms (ec_kernels) and the CUDA kernel wrappers (cuda_ec)."""
+transforms (ec_kernels), the CUDA kernel wrappers (cuda_ec), the EC
+dispatch pipeline (pipeline) and the HBM stripe cache (hbm_cache)."""

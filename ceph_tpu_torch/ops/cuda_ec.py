@@ -66,9 +66,12 @@ _ARGTYPES = {
 
 # launches per kernel entry point: gf_encode.cu's plain and fused modes,
 # crc32c.cu's segment and chain passes.  The fused pass is
-# gf_encode_crc + crc32c_chain and has no count of its own.
+# gf_encode_crc + crc32c_chain and has no count of its own.  Pipeline
+# lanes launch from their own threads: every bump and reset takes
+# _launch_lock.
 launches = {"gf_encode": 0, "gf_encode_crc": 0, "crc32c_segments": 0,
             "crc32c_chain": 0}
+_launch_lock = threading.Lock()
 
 _libs: dict[str, ctypes.CDLL] = {}
 _build_lock = threading.Lock()
@@ -89,8 +92,20 @@ GF_SMEM_MAX = 232448        # shared memory a Hopper block may opt into
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    with _launch_lock:
+        for name in launches:
+            launches[name] = 0
+
+
+def launch_counts() -> dict[str, int]:
+    """A consistent snapshot of `launches`."""
+    with _launch_lock:
+        return dict(launches)
+
+
+def _count_launch(name: str) -> None:
+    with _launch_lock:
+        launches[name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -329,7 +344,7 @@ def _gf_launch(matrix: np.ndarray, data: torch.Tensor,
                  _gf_tables_on(matrix, data.device).data_ptr(),
                  B, matrix.shape[0], c, L, _stream(data.device))
     _raise_on(err, "gf_encode")
-    launches["gf_encode"] += 1
+    _count_launch("gf_encode")
 
 
 def gf_transform(matrix: np.ndarray, data: torch.Tensor,
@@ -399,7 +414,7 @@ def gf_encode_segment_crcs(matrix: np.ndarray, data: torch.Tensor,
                      B, r, c, L, _crc_tables_on(data.device).data_ptr(),
                      seg.data_ptr(), _stream(data.device))
         _raise_on(err, "gf_encode_crc")
-        launches["gf_encode_crc"] += 1
+        _count_launch("gf_encode_crc")
     return out, seg.view(torch.uint32)
 
 
@@ -420,7 +435,7 @@ def crc32c_segments(rows: torch.Tensor,
                      _crc_tables_on(rows.device).data_ptr(),
                      _stream(rows.device))
         _raise_on(err, "crc32c_segments")
-        launches["crc32c_segments"] += 1
+        _count_launch("crc32c_segments")
     return seg.view(torch.uint32)
 
 
@@ -444,7 +459,7 @@ def crc32c_chain(seg: torch.Tensor) -> torch.Tensor:
                      _crc_tables_on(seg.device).data_ptr(),
                      _stream(seg.device))
         _raise_on(err, "crc32c_chain")
-        launches["crc32c_chain"] += 1
+        _count_launch("crc32c_chain")
     return out.view(torch.uint32)
 
 

@@ -18,10 +18,34 @@ batches: 256 MiB of data, 96 MiB of parity on the device):
      the fused pass's device-bytes model; then the encode, fused pass and
      decode of the k=2 m=1, k=4 m=2 and k=12 m=4 profiles, byte-exact;
   3. the codec through the registry (plugin "tpu", host_cutover pinned
-     to the device): fused encode+CRC and a three-erasure rebuild,
+     to the device): fused encode+CRC (a first call, then the counted
+     one) and a three-erasure rebuild,
      checked against the host oracle (native GF + CRC32C);
   4. the object path: ecutil.encode_object / decode_object of a seeded
      64 MiB payload at 1 MiB and at the default 4 KiB stripe unit.
+
+Phases 3-4 already run through the dispatch pipeline (ops/pipeline.py:
+one lane per card, its own CUDA stream, pinned staging).  Phases 5-8
+drive it under load at config #2 with pipeline depth 2, max_batch 256
+and a 4 GiB HBM stripe cache, at the 1 MiB and the 4 KiB stripe unit:
+
+  5. pipelined writes: 8 producer threads write 64 seeded 16 MiB objects
+     through ecutil.encode_object_async with a CacheIntent each, every
+     shape warm first; every shard and stripe CRC against the host
+     oracle; write GB/s on the host clock, dispatches, stripes per
+     dispatch, the H2D/D2H identities, and the card's busy share from a
+     torch.profiler trace; gf_encode_crc and crc32c_chain launches equal
+     the device dispatches;
+  6. pipelined rebuilds: concurrent decodes of every object with 3
+     chunks lost, bit-exact; gf_encode launches equal the dispatches;
+  7. deep scrub: every shard as a row through crc_channel(2 MiB,
+     max_coalesce=64), CRCs equal the host's, one corrupted row flagged,
+     crc32c_segments = crc32c_chain = CRC dispatches; the committed
+     cache entries' scrub folds equal the shard CRCs with no H2D, their
+     shard_bytes/data_bytes are bit-exact, and one append_through equals
+     a fresh encode of the appended object;
+  8. traces: one traced write carries the ec.coalesce, ec.stage_h2d,
+     ec.device_compute and ec.d2h spans.
 
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The line before the last lists the kernels; the last line is
@@ -270,7 +294,7 @@ def counted(cuda_ec, tally, expect, what, fn):
     cuda_ec.reset_launches()
     out = fn()
     torch.cuda.synchronize()
-    got = dict(cuda_ec.launches)
+    got = cuda_ec.launch_counts()
     if got != expect:
         raise AssertionError(f"{what}: kernel launches {got}, want {expect}")
     for name, n in got.items():
@@ -287,7 +311,8 @@ def host_oracle(coding, stripes, native, crc_mod):
     return allc, crc_mod.crc32c_batch(allc.reshape(S * km, L)).reshape(S, km)
 
 
-def phase_codec(rng, registry, native, crc_mod, cuda_ec, tally):
+def phase_codec(rng, registry, native, crc_mod, cuda_ec, ec_pipeline,
+                tally):
     codec = registry.factory("tpu", {"k": str(K), "m": str(M),
                                      "technique": "reed_sol_van",
                                      "host_cutover": "1"})
@@ -304,12 +329,17 @@ def phase_codec(rng, registry, native, crc_mod, cuda_ec, tally):
     warm_s += wait_warm(lambda: be.device_fn_if_ready(
         "bytes", rows, (), shape), "rebuild decode")
 
-    d2h0 = be.bytes_d2h
+    # the lane's first dispatch of a size allocates its pinned staging
+    # and readback buffers; the counted call after it is the steady state
+    t0 = time.perf_counter()
+    codec.encode_stripes_with_crcs(stripes)
+    first_s = time.perf_counter() - t0
+    d2h0 = ec_pipeline.stats()["bytes_d2h"]
     t0 = time.perf_counter()
     allc, crcs = counted(cuda_ec, tally, ENCODE_LAUNCHES, "codec encode",
                          lambda: codec.encode_stripes_with_crcs(stripes))
     enc_s = time.perf_counter() - t0
-    d2h = be.bytes_d2h - d2h0
+    d2h = ec_pipeline.stats()["bytes_d2h"] - d2h0
     want_d2h = B_MAIN * M * L_MAIN + 4 * B_MAIN * (K + M)
     if d2h != want_d2h:
         raise AssertionError(f"fused pass fetched {d2h} B, want {want_d2h}")
@@ -331,9 +361,12 @@ def phase_codec(rng, registry, native, crc_mod, cuda_ec, tally):
         raise AssertionError(f"device path not taken: {stats}, "
                              f"degraded={codec.degraded}")
     emit("codec", warm_s=warm_s, stats=dict(stats), d2h_bytes=d2h,
+         first_encode_gbs=stripes.nbytes / first_s / 1e9,
          encode_gbs=stripes.nbytes / enc_s / 1e9,
          decode_gbs=surv.nbytes / dec_s / 1e9,
-         note="host clock, includes H2D of inputs and D2H of outputs")
+         note="host clock through the pipeline, includes H2D of inputs "
+         "and D2H of outputs; first_encode_gbs includes pinned-buffer "
+         "allocation")
     return codec
 
 
@@ -381,13 +414,358 @@ def phase_objects(rng, codec, ecutil, crc_mod, cuda_ec, tally):
              note="host clock, whole ecutil call")
 
 
-# the kernels of the main path (crc32c_segments, the scrub CRC of rows
-# alone, is not on it: phase 2 holds and times it)
+# -- phases 5-8: the dispatch pipeline under load ---------------------------
+
+PIPE_DEPTH, PIPE_MAX_BATCH = 2, 256       # osd_ec_pipeline_depth/_max_batch
+HBM_CACHE_BYTES = 4 << 30
+PIPE_OBJECTS, PIPE_OBJECT_BYTES, PRODUCERS = 64, 16 << 20, 8
+SCRUB_BATCH = 64                          # osd_deep_scrub_stripe_batch
+PIPE_UNITS = (1 << 20, 4096)              # stripe units written
+LOST = (1, 5, 10)
+APPEND_BYTES = (1 << 20) + 12345
+
+
+class _Clock:
+    def now(self):
+        return time.monotonic()
+
+
+def pipe_delta(ec_pipeline, before: dict) -> dict:
+    after = ec_pipeline.stats()
+    return {k: after[k] - before[k] for k in
+            ("dispatches", "dev_dispatches", "host_dispatches", "stripes",
+             "bytes_h2d", "bytes_d2h", "device_errors", "quarantines",
+             "arena_uploads", "replans")}
+
+
+def launches_must_equal(cuda_ec, tally, expect: dict, what: str) -> dict:
+    """Counts read just after a counted window (zeroed just before it)."""
+    got = cuda_ec.launch_counts()
+    if got != expect:
+        raise AssertionError(f"{what}: kernel launches {got}, want {expect}")
+    for name, n in got.items():
+        tally[name] += n
+    return got
+
+
+def run_producers(fn, n: int) -> list:
+    """fn(i) for i < n on PRODUCERS threads; results in order."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(PRODUCERS) as pool:
+        return list(pool.map(fn, range(n)))
+
+
+def device_busy_share(prof, wall_s: float):
+    """Kernel + memcpy time on the card over the wall time of the traced
+    window: the union of the trace's CUDA activity intervals."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.time_range.end > e.time_range.start)
+    if not spans:
+        return None, 0
+    busy, cur0, cur1 = 0.0, *spans[0]
+    for t0, t1 in spans[1:]:
+        if t0 > cur1:
+            busy += cur1 - cur0
+            cur0, cur1 = t0, t1
+        else:
+            cur1 = max(cur1, t1)
+    busy += cur1 - cur0
+    return busy / 1e6 / wall_s, len(spans)
+
+
+def warm_buckets(S: int) -> list:
+    """Padded stripe counts a coalesced batch of whole S-stripe items
+    can reach with PRODUCERS items in flight."""
+    out = {S_pad for S_pad in (1 << (j * S - 1).bit_length()
+                               for j in range(1, PRODUCERS + 1)
+                               if j == 1 or j * S <= PIPE_MAX_BATCH)}
+    return sorted(out)
+
+
+def phase_pipelined_writes(payloads, codec, ecutil, hbm_cache, ec_pipeline,
+                           optracker, native, crc_mod, cuda_ec, device,
+                           tally):
+    be = codec.backend
+    written = {}
+    for unit in PIPE_UNITS:
+        sinfo = ecutil.StripeInfo(K, unit)
+        S = sinfo.stripe_count(PIPE_OBJECT_BYTES)
+        L = sinfo.chunk_size
+        warm_s = 0.0
+        for S_pad in warm_buckets(S):
+            warm_s += wait_warm(lambda: be.fused_fn_if_ready(
+                codec.coding_matrix, (S_pad, K, L), device),
+                f"encode at {(S_pad, K, L)}")
+        cid = f"pg_{unit}"
+        tracker = optracker.OpTracker(_Clock(), history_size=PIPE_OBJECTS)
+        spans: dict = {}
+        durations = []
+
+        def write(i, cached=True):
+            intent = hbm_cache.CacheIntent(cid, f"obj{i}", (1, i),
+                                           PIPE_OBJECT_BYTES, L) \
+                if cached else None
+            op = tracker.create(f"write obj{i}")
+            with optracker.op_context(op):
+                out = ecutil.encode_object_async(
+                    codec, sinfo, memoryview(payloads[i]),
+                    cache=intent).result(60)
+            op.finish()
+            if cached:
+                doc = op.dump()
+                durations.append(doc["duration"])
+                for sp in doc["spans"]:
+                    spans.setdefault(sp["name"], []).append(
+                        sp["t1"] - sp["t0"])
+            return out
+
+        def window(fn, what):
+            torch.cuda.synchronize()
+            cuda_ec.reset_launches()
+            before = ec_pipeline.stats()
+            t0 = time.perf_counter()
+            out = run_producers(fn, PIPE_OBJECTS)
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            d = pipe_delta(ec_pipeline, before)
+            launches_must_equal(cuda_ec, tally, {
+                "gf_encode": 0, "gf_encode_crc": d["dev_dispatches"],
+                "crc32c_segments": 0, "crc32c_chain": d["dev_dispatches"]},
+                f"{what} at {unit} B")
+            if d["host_dispatches"] or not d["dev_dispatches"]:
+                raise AssertionError(f"{what} at {unit} B left the card: "
+                                     f"{d}")
+            # every object is over ARENA_MIN_BYTES: each dispatch uploads
+            # its items straight from their pinned arenas
+            if device.type == "cuda" and \
+                    d["arena_uploads"] != d["dev_dispatches"]:
+                raise AssertionError(f"{what} at {unit} B: dispatches "
+                                     f"bypassed the arenas: {d}")
+            return out, wall, d
+
+        # pass 1, under the profiler: the card's busy share; pass 2,
+        # profiler off: write GB/s, the checks and the cache entries
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+        with prof:
+            _, prof_wall, _ = window(lambda i: write(i, cached=False),
+                                     "profiled writes")
+        results, wall, d = window(write, "pipelined writes")
+        # parity-only readback: per dispatch S_pad*K*L up,
+        # S_pad*(M*L + 4*(K+M)) down
+        per_stripe_up, per_stripe_down = K * L, M * L + 4 * (K + M)
+        if d["bytes_h2d"] % per_stripe_up or \
+                d["bytes_d2h"] * per_stripe_up != \
+                d["bytes_h2d"] * per_stripe_down or \
+                d["bytes_h2d"] < PIPE_OBJECTS * S * per_stripe_up:
+            raise AssertionError(f"transfer identity broken at {unit}: {d}")
+        for i, (shards, stripe_crcs) in enumerate(results):
+            stripes = payloads[i].reshape(S, K, L)
+            allc, crcs = host_oracle(codec.coding_matrix, stripes, native,
+                                     crc_mod)
+            if not np.array_equal(stripe_crcs, crcs):
+                raise AssertionError(f"object {i} CRCs != oracle at {unit}")
+            for c in range(K + M):
+                if not np.array_equal(np.frombuffer(shards[c], np.uint8),
+                                      allc[:, c].reshape(-1)):
+                    raise AssertionError(f"object {i} shard {c} != oracle")
+        for i in range(PIPE_OBJECTS):
+            if not hbm_cache.get().commit(cid, f"obj{i}", (1, i)):
+                raise AssertionError(f"object {i} at {unit} B not staged")
+        try:
+            busy, n_events = device_busy_share(prof, prof_wall)
+        except (AttributeError, TypeError, ValueError) as e:
+            busy, n_events = None, f"not measured: {e!r}"
+        emit("pipelined_writes", stripe_unit=unit, objects=PIPE_OBJECTS,
+             producers=PRODUCERS, warm_s=warm_s, wall_s=wall,
+             write_gbs=PIPE_OBJECTS * PIPE_OBJECT_BYTES / wall / 1e9,
+             dispatches=d["dev_dispatches"],
+             stripes_per_dispatch=d["stripes"] / d["dispatches"],
+             bytes_h2d=d["bytes_h2d"], bytes_d2h=d["bytes_d2h"],
+             arena_uploads=d["arena_uploads"], replans=d["replans"],
+             h2d_identity="S_pad*k*L per dispatch",
+             d2h_identity="S_pad*(m*L+4*(k+m)) per dispatch",
+             padded_stripes=d["bytes_h2d"] // per_stripe_up,
+             device_busy_share=busy, profiler_device_events=n_events,
+             profiled_write_gbs=PIPE_OBJECTS * PIPE_OBJECT_BYTES
+             / prof_wall / 1e9,
+             op_ms=1e3 * float(np.mean(durations)),
+             span_ms={n: 1e3 * float(np.mean(v)) for n, v in spans.items()},
+             note="host clock over all producers; busy share from the "
+             "profiled pass (no cache intents), the rest from the second")
+        written[unit] = (sinfo, results)
+    return written
+
+
+def phase_pipelined_rebuilds(payloads, written, codec, ecutil, ec_pipeline,
+                             cuda_ec, device, tally):
+    be = codec.backend
+    want = [i for i in LOST if i < K]
+    present = codec.minimum_to_decode(
+        want, [i for i in range(K + M) if i not in LOST])
+    rows = codec._decode_rows(want, present)
+    for unit, (sinfo, results) in written.items():
+        S, L = sinfo.stripe_count(PIPE_OBJECT_BYTES), sinfo.chunk_size
+        for S_pad in warm_buckets(S):
+            wait_warm(lambda: be.device_fn_if_ready(
+                "bytes", rows, (), (S_pad, len(present), L), device),
+                f"decode at {(S_pad, L)}")
+        kept = [{c: shards[c] for c in range(K + M) if c not in LOST}
+                for shards, _ in results]
+
+        def rebuild(i):
+            return bytes(ecutil.decode_object(codec, sinfo, kept[i],
+                                              PIPE_OBJECT_BYTES))
+
+        torch.cuda.synchronize()
+        cuda_ec.reset_launches()
+        before = ec_pipeline.stats()
+        t0 = time.perf_counter()
+        back = run_producers(rebuild, PIPE_OBJECTS)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        d = pipe_delta(ec_pipeline, before)
+        launches_must_equal(cuda_ec, tally, {
+            "gf_encode": d["dev_dispatches"], "gf_encode_crc": 0,
+            "crc32c_segments": 0, "crc32c_chain": 0},
+            f"pipelined rebuilds at {unit} B")
+        if d["host_dispatches"] or not d["dev_dispatches"]:
+            raise AssertionError(f"rebuilds at {unit} B left the card: {d}")
+        for i, b in enumerate(back):
+            if b != payloads[i].tobytes():
+                raise AssertionError(f"rebuild of object {i} at {unit} B")
+        emit("pipelined_rebuilds", stripe_unit=unit, lost=list(LOST),
+             dispatches=d["dev_dispatches"],
+             stripes_per_dispatch=d["stripes"] / d["dispatches"],
+             bytes_h2d=d["bytes_h2d"], bytes_d2h=d["bytes_d2h"],
+             rebuild_gbs=PIPE_OBJECTS * PIPE_OBJECT_BYTES / wall / 1e9,
+             note="host clock over all producers")
+
+
+def phase_deep_scrub(payloads, written, codec, ecutil, hbm_cache,
+                     ec_pipeline, crc_mod, cuda_ec, device, tally):
+    pipe = ec_pipeline.get()
+    size = PIPE_OBJECT_BYTES // K               # one shard file
+    chan = ec_pipeline.crc_channel(size, max_coalesce=SCRUB_BATCH)
+    S_pad = 1
+    while S_pad <= SCRUB_BATCH:
+        wait_warm(lambda: ec_pipeline.crc_fn_if_ready(size, (S_pad, size),
+                                                      device),
+                  f"scrub CRC at {(S_pad, size)}")
+        S_pad *= 2
+    rows = [np.frombuffer(shards[c], np.uint8).reshape(1, size)
+            for _sinfo, results in written.values()
+            for shards, _ in results for c in range(K + M)]
+    bad = rows[7].copy()
+    bad[0, size // 2] ^= 0x40
+    rows.append(bad)
+    torch.cuda.synchronize()
+    cuda_ec.reset_launches()
+    before = ec_pipeline.stats()
+    t0 = time.perf_counter()
+    futs = [pipe.submit(chan, r) for r in rows]
+    got = np.concatenate([f.result(60)[1][0] for f in futs])
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    d = pipe_delta(ec_pipeline, before)
+    launches_must_equal(cuda_ec, tally, {
+        "gf_encode": 0, "gf_encode_crc": 0,
+        "crc32c_segments": d["dev_dispatches"],
+        "crc32c_chain": d["dev_dispatches"]}, "deep scrub")
+    if d["host_dispatches"] or not d["dev_dispatches"]:
+        raise AssertionError(f"scrub left the card: {d}")
+    want = crc_mod.crc32c_batch(np.concatenate(rows[:-1]))
+    if not np.array_equal(got[:-1], want):
+        raise AssertionError("scrub CRCs != host CRCs")
+    if got[-1] == got[7]:
+        raise AssertionError("corrupted row not flagged")
+
+    # scrub folds of the committed cache entries: no H2D at all
+    h2d0 = ec_pipeline.stats()["bytes_h2d"]
+    folded, row = 0, 0
+    for unit, (sinfo, results) in written.items():
+        for i in range(PIPE_OBJECTS):
+            ent = hbm_cache.get().lookup(f"pg_{unit}", f"obj{i}", (1, i))
+            if ent is None:
+                raise AssertionError(f"no cache entry for obj{i} at {unit}")
+            if ecutil.fold_shard_crcs(ent.crcs, sinfo.chunk_size) != \
+                    [int(c) for c in got[row: row + K + M]]:
+                raise AssertionError(f"scrub fold of obj{i} at {unit} B")
+            row += K + M
+            folded += 1
+            if bytes(ent.data_bytes()) != payloads[i].tobytes():
+                raise AssertionError(f"data_bytes of obj{i} at {unit} B")
+            if i % 16 == 0:
+                for c in range(K + M):
+                    if ent.shard_bytes(c) != bytes(results[i][0][c]):
+                        raise AssertionError(f"shard_bytes obj{i} s{c}")
+    fold_h2d = ec_pipeline.stats()["bytes_h2d"] - h2d0
+    if fold_h2d:
+        raise AssertionError(f"cache-served scrub moved {fold_h2d} B H2D")
+
+    # append write-through: resident prefix + uploaded tail
+    unit = PIPE_UNITS[0]
+    sinfo, results = written[unit]
+    cid = f"pg_{unit}"
+    old = payloads[0].tobytes()
+    new = old + np.random.default_rng(SEED + 1).integers(
+        0, 256, APPEND_BYTES, dtype=np.uint8).tobytes()
+    full_before = len(old) // sinfo.stripe_width
+    buf = np.zeros(sinfo.stripe_count(len(new)) * sinfo.stripe_width,
+                   dtype=np.uint8)
+    buf[:len(new)] = np.frombuffer(new, np.uint8)
+    tail = buf.reshape(-1, K, sinfo.chunk_size)[full_before:]
+    t_allc, t_crcs = codec.encode_stripes_with_crcs(tail)
+    if not hbm_cache.get().append_through(
+            cid, "obj0", (1, 0), (2, 0), len(new), sinfo.chunk_size,
+            full_before, tail, t_allc[:, K:], t_crcs) \
+            or not hbm_cache.get().commit(cid, "obj0", (2, 0)):
+        raise AssertionError("append_through refused")
+    ent = hbm_cache.get().lookup(cid, "obj0", (2, 0))
+    shards, stripe_crcs = ecutil.encode_object_async(codec, sinfo,
+                                                     new).result(60)
+    if bytes(ent.data_bytes()) != new or \
+            not np.array_equal(ent.crcs, stripe_crcs) or \
+            any(ent.shard_bytes(c) != bytes(shards[c])
+                for c in range(K + M)):
+        raise AssertionError("append_through != fresh encode")
+    emit("deep_scrub", rows=len(rows), row_bytes=size,
+         dispatches=d["dev_dispatches"],
+         rows_per_dispatch=d["stripes"] / d["dispatches"],
+         bytes_h2d=d["bytes_h2d"], bytes_d2h=d["bytes_d2h"],
+         scrub_gbs=len(rows) * size / wall / 1e9, corrupted_flagged=True,
+         cache_folds=folded, cache_fold_bytes_h2d=fold_h2d,
+         append_through_ok=True, cache=hbm_cache.stats(),
+         note="host clock")
+
+
+def phase_traces(payloads, codec, ecutil, optracker):
+    sinfo = ecutil.StripeInfo(K, PIPE_UNITS[0])
+    op = optracker.OpTracker(_Clock()).create("ec write",
+                                              trace_id="client.0:1")
+    with optracker.op_context(op):
+        ecutil.encode_object(codec, sinfo, memoryview(payloads[1]))
+    op.finish()
+    spans = {s["name"]: s["t1"] - s["t0"] for s in op.dump()["spans"]}
+    need = ("ec.coalesce", "ec.stage_h2d", "ec.device_compute", "ec.d2h")
+    missing = [n for n in need if n not in spans]
+    if missing:
+        raise AssertionError(f"traced write lacks spans {missing}: {spans}")
+    emit("traces", spans_s=spans)
+
+
+# the kernels of the main path: writes (fused pass), rebuilds, and the
+# deep-scrub CRC channel (crc32c_segments + crc32c_chain)
 KERNEL_META = {
     "gf_encode": ("ceph_tpu_torch/csrc/gf_encode.cu",
                   "ceph_tpu/ops/pallas_ec.py:55"),
     "gf_encode_crc": ("ceph_tpu_torch/csrc/gf_encode.cu",
                       "ceph_tpu/ops/pallas_ec.py:55"),
+    "crc32c_segments": ("ceph_tpu_torch/csrc/crc32c.cu",
+                        "ceph_tpu/ops/pallas_ec.py:167"),
     "crc32c_chain": ("ceph_tpu_torch/csrc/crc32c.cu",
                      "ceph_tpu/ops/pallas_ec.py:167"),
 }
@@ -401,8 +779,10 @@ def main() -> int:
     from ceph_tpu_torch import native
     from ceph_tpu_torch.erasure.registry import registry
     from ceph_tpu_torch.ops import crc32c as crc_mod
-    from ceph_tpu_torch.ops import cuda_ec, ec_kernels, gf
+    from ceph_tpu_torch.ops import cuda_ec, ec_kernels, gf, hbm_cache
+    from ceph_tpu_torch.ops import pipeline as ec_pipeline
     from ceph_tpu_torch.osd import ecutil
+    from ceph_tpu_torch.utils import optracker
 
     device = torch.device("cuda", 0)
     ceph_tpu_torch.set_device(device)
@@ -423,8 +803,24 @@ def main() -> int:
     # main path: each op is counted on its own, warm-ups excluded
     rng = np.random.default_rng(SEED)
     counts = dict.fromkeys(cuda_ec.launches, 0)
-    codec = phase_codec(rng, registry, native, crc_mod, cuda_ec, counts)
+    ec_pipeline.configure(depth=PIPE_DEPTH, max_batch=PIPE_MAX_BATCH,
+                          hbm_cache_bytes=HBM_CACHE_BYTES)
+    codec = phase_codec(rng, registry, native, crc_mod, cuda_ec,
+                        ec_pipeline, counts)
     phase_objects(rng, codec, ecutil, crc_mod, cuda_ec, counts)
+    payloads = [rng.integers(0, 256, PIPE_OBJECT_BYTES, dtype=np.uint8)
+                for _ in range(PIPE_OBJECTS)]
+    written = phase_pipelined_writes(payloads, codec, ecutil, hbm_cache,
+                                     ec_pipeline, optracker, native,
+                                     crc_mod, cuda_ec, device, counts)
+    phase_pipelined_rebuilds(payloads, written, codec, ecutil, ec_pipeline,
+                             cuda_ec, device, counts)
+    phase_deep_scrub(payloads, written, codec, ecutil, hbm_cache,
+                     ec_pipeline, crc_mod, cuda_ec, device, counts)
+    phase_traces(payloads, codec, ecutil, optracker)
+    emit("pipeline", stats={k: v for k, v in ec_pipeline.stats().items()
+                            if not isinstance(v, dict)})
+    ec_pipeline.get().stop()
     by_source = {src: sum(n for name, n in counts.items()
                           if name.startswith(src)) for src in cuda_ec.SOURCES}
     emit("main_path_launches", launches=counts, by_source=by_source)

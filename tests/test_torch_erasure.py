@@ -17,11 +17,14 @@ import torch
 import ceph_tpu_torch
 from ceph_tpu.erasure import matrix_codec as jmc
 from ceph_tpu.erasure.registry import registry as jregistry
+from ceph_tpu.ops import hbm_cache as jhbm_cache
+from ceph_tpu.ops import pipeline as jpipeline
 from ceph_tpu.osd import ecutil as jecutil
 from ceph_tpu_torch.erasure import matrix_codec as tmc
 from ceph_tpu_torch.erasure.registry import registry as tregistry
 from ceph_tpu_torch.ops import crc32c as crc_mod
-from ceph_tpu_torch.ops import ec_kernels
+from ceph_tpu_torch.ops import ec_kernels, hbm_cache
+from ceph_tpu_torch.ops import pipeline as tpipeline
 from ceph_tpu_torch.osd import ecutil as tecutil
 from ceph_tpu_torch.utils import faults as tfaults
 
@@ -33,6 +36,13 @@ def _cpu_device():
     prev, threads = ceph_tpu_torch.set_device("cpu"), torch.get_num_threads()
     torch.set_num_threads(1)
     yield
+    # the codec's batches ride the shared pipeline: stop its threads
+    # and drop its lanes (and any quarantine) with the test — both
+    # packages' pipelines, since the reference's codecs start theirs
+    tpipeline.get().stop()
+    hbm_cache.get().clear()
+    jpipeline.get().stop()
+    jhbm_cache.get().clear()
     torch.set_num_threads(threads)
     ceph_tpu_torch.set_device(prev)
 
@@ -77,12 +87,12 @@ def test_fused_device_pass_matches_jax_codec(k, m, S, L):
     be = ours.backend
     _wait(lambda: be.fused_fn_if_ready(ours.coding_matrix,
                                        be.pad_batch(stripes).shape))
-    d2h = be.bytes_d2h
+    d2h = tpipeline.stats()["bytes_d2h"]
     allc, crcs = ours.encode_stripes_with_crcs(stripes)
     assert ours.stat_counters()["device_stripe_passes"] == 1
     S_pad = be.pad_batch(stripes).shape[0]
-    assert be.bytes_d2h - d2h == ec_kernels.encode_readback_bytes(
-        S_pad, k, m, L)
+    assert tpipeline.stats()["bytes_d2h"] - d2h == \
+        ec_kernels.encode_readback_bytes(S_pad, k, m, L)
     jallc, jcrcs = theirs.encode_stripes_with_crcs(stripes)
     assert np.array_equal(allc, jallc)
     assert crcs.dtype == np.uint32 and np.array_equal(crcs, jcrcs)
@@ -114,9 +124,9 @@ def test_decode_batch_matches_jax_codec(erased):
     rows = ours._decode_rows(want, present)
     _wait(lambda: ours.backend.device_fn_if_ready(
         "bytes", rows, (), ours.backend.pad_batch(surv).shape))
-    h2d = ours.backend.bytes_h2d
+    h2d = tpipeline.stats()["bytes_h2d"]
     got = ours.decode_batch(want, present, surv)
-    assert ours.backend.bytes_h2d > h2d           # went to the device
+    assert tpipeline.stats()["bytes_h2d"] > h2d    # went to the device
     assert np.array_equal(got, theirs.decode_batch(want, present, surv))
     assert np.array_equal(got, allc[:, want])
 
@@ -332,3 +342,47 @@ def test_fold_shard_crcs_matches_jax():
     for upto in (None, 0, 3):
         assert tecutil.fold_shard_crcs(crcs, 4096, upto) == \
             jecutil.fold_shard_crcs(crcs, 4096, upto)
+
+
+@pytest.mark.parametrize("unit,size", [(4096, 150_000), (1 << 16, 300_001)])
+def test_ecutil_async_through_pipeline_both_directions(unit, size):
+    """encode_object_async / decode_object through the port's pipeline
+    (device path, cache-tagged, QoS-tagged) against ceph_tpu's, both
+    ways: identical shards and stripe CRCs, and either package decodes
+    the other's shards with chunks lost."""
+    k, m = 8, 3
+    ours = tregistry.factory("tpu", _profile(k, m))
+    theirs = jregistry.factory("tpu", _profile(k, m))
+    tinfo, jinfo = tecutil.StripeInfo(k, unit), jecutil.StripeInfo(k, unit)
+    payload = _payload(size, seed=unit)
+    S = tinfo.stripe_count(size)
+    shape = (tpipeline.next_bucket(S), k, tinfo.chunk_size)
+    _wait(lambda: ours.backend.fused_fn_if_ready(ours.coding_matrix, shape))
+    hbm_cache.configure(64 << 20)
+    intent = hbm_cache.CacheIntent("pg_t", "obj", (1, 1), size,
+                                   tinfo.chunk_size)
+    t_shards, t_stripe_crcs = tecutil.encode_object_async(
+        ours, tinfo, payload, cache=intent, qos="gold").result(60)
+    assert ours.stat_counters()["device_stripe_passes"] == 1
+    j_shards, j_stripe_crcs = jecutil.encode_object_async(
+        theirs, jinfo, payload).result(60)
+    assert np.array_equal(t_stripe_crcs, j_stripe_crcs)
+    for a, b in zip(t_shards, j_shards):
+        assert bytes(a) == bytes(b)
+    # the device dispatch left the stripes on the (CPU) lane
+    assert hbm_cache.get().commit("pg_t", "obj", (1, 1))
+    ent = hbm_cache.get().lookup("pg_t", "obj")
+    assert tecutil.fold_shard_crcs(ent.crcs, tinfo.chunk_size) == \
+        jecutil.fold_shard_crcs(j_stripe_crcs, jinfo.chunk_size)
+    lost = (0, 3, 9)
+    rows = ours._decode_rows([0, 3], ours.minimum_to_decode(
+        [0, 3], [i for i in range(k + m) if i not in lost]))
+    _wait(lambda: ours.backend.device_fn_if_ready(
+        "bytes", rows, (), (shape[0], k, tinfo.chunk_size)))
+    t_kept = {i: bytes(s) for i, s in enumerate(t_shards) if i not in lost}
+    j_kept = {i: bytes(s) for i, s in enumerate(j_shards) if i not in lost}
+    dev0 = tpipeline.stats()["dev_dispatches"]
+    assert bytes(tecutil.decode_object(ours, tinfo, j_kept, size)) == payload
+    assert tpipeline.stats()["dev_dispatches"] == dev0 + 1
+    assert bytes(jecutil.decode_object(theirs, jinfo, t_kept, size)) \
+        == payload

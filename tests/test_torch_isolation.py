@@ -42,6 +42,9 @@ def test_every_module_imports_without_jax_or_ceph_tpu():
     mods = _port_modules()
     assert "ceph_tpu_torch.ops.cuda_ec" in mods
     assert "ceph_tpu_torch.erasure.plugin_tpu" in mods
+    for name in ("ops.pipeline", "ops.hbm_cache", "utils.optracker",
+                 "utils.dmclock"):
+        assert f"ceph_tpu_torch.{name}" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -99,9 +102,10 @@ def test_default_device_is_cuda_and_never_falls_back():
 
 
 def test_codec_on_default_device_raises_without_a_card():
-    """The registry's tpu codec, pinned to the device, serves the host
-    only while its warm-up runs; once the warm-up has failed for want
-    of a card, every dispatch raises."""
+    """The registry's tpu codec, pinned to the device, sends its batches
+    to the pipeline, whose lanes are the visible cards: with none, every
+    dispatch raises (no pseudo-lane, no host run) and the codec does not
+    degrade."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
     code = (
@@ -123,7 +127,7 @@ def test_codec_on_default_device_raises_without_a_card():
     out = _run(code)
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert got["err"] and "warm-up of fused" in got["err"], got
+    assert got["err"] and "no CUDA device" in got["err"], got
     assert got["degraded"] is False and got["device_passes"] == 0
 
 
