@@ -1,6 +1,7 @@
-"""ceph-tpu on PyTorch: the erasure-code write, scrub-CRC and rebuild
-path of ``ceph_tpu`` ported to PyTorch, with hand-written CUDA kernels
-for NVIDIA Hopper (sm_90a).
+"""ceph-tpu on PyTorch: the ``ceph_tpu`` daemons (mons, OSDs, mgr),
+librados clients and erasure-code path ported to PyTorch, with
+hand-written CUDA kernels for NVIDIA Hopper (sm_90a) under every EC
+byte.  Wire format and on-disk layout are ``ceph_tpu``'s.
 
 Layout mirrors the JAX package so each module's counterpart is easy to
 find:
@@ -10,9 +11,19 @@ find:
              stripe cache (hbm_cache)
   csrc/      CUDA C++ sources, built with nvcc at first use
   erasure/   erasure-code plugin framework (tpu/jerasure/isa/shec/lrc)
-  osd/       stripe math + whole-object encode/decode (ecutil)
-  utils/     logging, fault injection, copy audit, buffer lists
+  osd/       the OSD: PGs, peering, replicated and EC backends, scrub,
+             recovery, stripe math (ecutil)
+  mon/       paxos monitors (maps, health, EC profiles)
+  client/    objecter + librados-style client API
+  msg/       typed messenger (blocking and event-loop stacks)
+  store/     ObjectStore backends (memstore, filestore, kstore,
+             blockstore)
+  crush/     CRUSH placement; kv/ key/value stores; auth/ cephx;
+             cls/ object classes; compressor/; mgr/
+  utils/     config, logging, fault injection, counters, op tracing
   native/    C++ host kernels (AVX2 GF math, hw CRC32C)
+  vstart.py  MiniCluster (mons + OSDs + mgr in one process);
+  daemons.py the mon, osd and mgr entry points
 
 Device: every entry point runs on ``cuda`` unless the caller asks for
 the CPU with :func:`set_device`.  There is no silent fallback: on a

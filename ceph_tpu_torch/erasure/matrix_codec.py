@@ -214,8 +214,9 @@ class TorchBackend:
         # pipeline's collect path; cost-aware placement signal)
         self._dev_perf: dict[tuple[int, int], dict] = {}
         self._calls = 0
-        # a (fn, shape) pair is servable only after the kernel library
-        # is built and one launch at that shape succeeded.  Warm-ups run
+        # a (kind, matrix dims, batch shape) is servable only after the
+        # kernel library is built and one launch at that shape
+        # succeeded.  Warm-ups run
         # on a background thread so an OSD op never blocks on an nvcc
         # build — until ready the call is served by the host kernels.
         # A failed warm-up is kept per shape and raised by every later
@@ -262,14 +263,9 @@ class TorchBackend:
                 fn = self._ek.make_packet_codec_fn(matrix, w, packetsize,
                                                    self.compute)
             if len(self._fns) > 256:
-                # readiness is keyed on the fn cache: evicting one
-                # without the other would strand "ready" shapes whose
-                # fn is gone (device path permanently dead)
+                # readiness is per matrix shape, not per fn: an evicted
+                # fn is rebuilt (a host-side table) on its next use
                 self._fns.clear()
-                self._ready.clear()
-                with self._warm_lock:
-                    self._warming.clear()
-                    self._warm_failed.clear()
             self._fns[key] = fn
         return fn
 
@@ -361,7 +357,13 @@ class TorchBackend:
 
         Warm means the kernel library is built and one launch at this
         shape on that device succeeded: readiness is per device, since
-        the pipeline's lanes may sit on several cards.  Building the fn
+        the pipeline's lanes may sit on several cards, and per matrix
+        SHAPE, not per matrix: the kernels take the coefficients as a
+        parameter block, so once one (r, c) matrix launched at a batch
+        shape, every other one of those dimensions launches there too
+        (a degraded read's decode rows depend on which peers answered
+        first; each new set costs a host-side table, never a cold
+        shape served from the host).  Building the fn
         ALSO stays off the caller's thread: the first use compiles the
         kernels with nvcc (seconds) and initializes the CUDA context —
         an OSD op must never pay that, so both happen on the warm
@@ -371,10 +373,10 @@ class TorchBackend:
         import threading
 
         device = self.device if device is None else torch.device(device)
-        fkey = (kind, matrix.tobytes(), matrix.shape, *extra)
-        rkey = (fkey, tuple(shape), ec_pipeline.device_warm_key(device))
+        rkey = ((kind, matrix.shape, *extra), tuple(shape),
+                ec_pipeline.device_warm_key(device))
         if rkey in self._ready:
-            return self._fns.get(fkey)
+            return self._fn(kind, matrix, *extra)
         with self._warm_lock:
             err = self._warm_failed.get(rkey)
             if err is not None:

@@ -146,7 +146,7 @@ class CacheEntry:
 
     __slots__ = ("cid", "oid", "version", "size", "chunk_size", "k",
                  "m", "dev_data", "dev_parity", "crcs", "lane", "ready",
-                 "nbytes", "committed")
+                 "nbytes", "committed", "lane_dropped")
 
     def __init__(self, intent: CacheIntent, lane: int, dev_data,
                  dev_parity, crcs: np.ndarray, stream=None):
@@ -165,6 +165,10 @@ class CacheEntry:
         self.nbytes = (self.dev_data.numel() + self.dev_parity.numel()
                        + self.crcs.nbytes)
         self.committed = False
+        # set when the entry's lane quarantined and the cache dropped
+        # it: the card's memory is in an unknown state, so a failed
+        # fetch from it is the expected "gone", not an error to raise
+        self.lane_dropped = False
 
     @property
     def stripes(self) -> int:
@@ -173,16 +177,29 @@ class CacheEntry:
     def shard_size(self) -> int:
         return self.stripes * self.chunk_size
 
+    def _fetch(self, src: torch.Tensor) -> np.ndarray | None:
+        """`src` copied D2H, or None when the fetch failed because the
+        entry is gone (its lane quarantined and the cache dropped it).
+        Any other device error raises: the caller must not quietly
+        serve the store instead of reporting a broken card."""
+        try:
+            (arr,) = to_host((src,), self.ready)
+        except RuntimeError:
+            if self.lane_dropped:
+                return None
+            raise
+        get().count_d2h(arr.nbytes)
+        return arr
+
     def data_bytes(self):
         """The logical object payload, fetched D2H from the cached
-        data stripes (None if the device copy fails).  Returns a
-        zero-copy BufferList VIEW over the fetched array — the D2H
-        fetch is the only materialization a cache-served read pays."""
-        try:
-            (arr,) = to_host((self.dev_data,), self.ready)
-        except RuntimeError:
+        data stripes (None if the entry is gone, see `_fetch`).
+        Returns a zero-copy BufferList VIEW over the fetched array —
+        the D2H fetch is the only materialization a cache-served read
+        pays."""
+        arr = self._fetch(self.dev_data)
+        if arr is None:
             return None
-        get().count_d2h(arr.nbytes)
         arr = np.ascontiguousarray(arr)
         from ..utils.bufferlist import BufferList
         rope = BufferList(memoryview(arr.reshape(-1))[: self.size])
@@ -191,15 +208,12 @@ class CacheEntry:
 
     def shard_bytes(self, shard: int) -> bytes | None:
         """One shard file's bytes (chunk `shard` of every stripe),
-        fetched D2H — only this shard's rows cross the boundary."""
+        fetched D2H — only this shard's rows cross the boundary (None
+        if the entry is gone, see `_fetch`)."""
         src = self.dev_data[:, shard] if shard < self.k \
             else self.dev_parity[:, shard - self.k]
-        try:
-            (arr,) = to_host((src,), self.ready)
-        except RuntimeError:
-            return None
-        get().count_d2h(arr.nbytes)
-        return arr.tobytes()
+        arr = self._fetch(src)
+        return None if arr is None else arr.tobytes()
 
 
 class HbmStripeCache:
@@ -441,6 +455,7 @@ class HbmStripeCache:
             for key in [k for k, e in self._entries.items()
                         if e.lane == lane]:
                 ent = self._entries.pop(key)
+                ent.lane_dropped = True
                 self._bytes -= ent.nbytes
                 dropped += 1
                 if key not in self._pending:
@@ -448,6 +463,7 @@ class HbmStripeCache:
             for key in [k for k, e in self._pending.items()
                         if e.lane == lane]:
                 pend = self._pending.pop(key)
+                pend.lane_dropped = True
                 self._pbytes -= pend.nbytes
                 dropped += 1
                 if key not in self._entries:

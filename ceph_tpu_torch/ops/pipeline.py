@@ -487,6 +487,10 @@ class EcDevicePipeline:
         self._threads: list = []
         self._c = {
             "dispatches": 0, "dev_dispatches": 0, "host_dispatches": 0,
+            # device dispatches per channel kind (its key's first
+            # field): each launches that kind's kernels exactly once
+            "dev_dispatches_enc": 0, "dev_dispatches_dec": 0,
+            "dev_dispatches_crc": 0,
             "ops": 0, "stripes": 0, "coalesce_waits": 0,
             "device_errors": 0, "drained_to_host": 0,
             "max_queue_depth": 0, "quarantines": 0,
@@ -516,8 +520,9 @@ class EcDevicePipeline:
         self._threads.append(t)
 
     def _ensure_devset(self) -> DeviceSet:
-        """Build the device set lazily (dispatcher thread only; raises
-        when the package device has no card)."""
+        """Build the device set lazily (at the first dispatch, or at
+        an OSD's boot through start_lanes; raises when the package
+        device has no card)."""
         ds = self._devset
         if ds is not None:
             return ds
@@ -537,6 +542,15 @@ class EcDevicePipeline:
                         t.start()
                         self._threads.append(t)
             return self._devset
+
+    def start_lanes(self) -> int:
+        """Start the dispatcher and build the lanes now rather than at
+        the first submit (an OSD at boot); returns the lane count.
+        Raises when the package device is cuda and no card is
+        visible."""
+        with self._lock:
+            self._ensure_threads()
+        return len(self._ensure_devset().lanes)
 
     def reset_devices(self, device_shards=_UNSET) -> None:
         """Rebuild the device set on next dispatch: clears quarantine
@@ -1337,6 +1351,9 @@ class EcDevicePipeline:
             depth = len(lane.inflight) + 1
             self._c["dispatches"] += 1
             self._c["dev_dispatches"] += 1
+            kind = f"dev_dispatches_{disp.chan.key[0]}"
+            if kind in self._c:
+                self._c[kind] += 1
             self._c["bytes_d2h"] += d2h
             lane.dispatches += 1
             lane.stripes += disp.S

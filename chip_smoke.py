@@ -29,7 +29,7 @@ one lane per card, its own CUDA stream, pinned staging).  Phases 5-8
 drive it under load at config #2 with pipeline depth 2, max_batch 256
 and a 4 GiB HBM stripe cache, at the 1 MiB and the 4 KiB stripe unit:
 
-  5. pipelined writes: 8 producer threads write 64 seeded 16 MiB objects
+  5. pipelined writes: 8 producer threads write 32 seeded 16 MiB objects
      through ecutil.encode_object_async with a CacheIntent each, every
      shape warm first; every shard and stripe CRC against the host
      oracle; write GB/s on the host clock, dispatches, stripes per
@@ -46,6 +46,32 @@ and a 4 GiB HBM stripe cache, at the 1 MiB and the 4 KiB stripe unit:
      a fresh encode of the appended object;
   8. traces: one traced write carries the ec.coalesce, ec.stage_h2d,
      ec.device_compute and ec.d2h spans.
+
+Phase 9 drives the port's cluster path: a vstart MiniCluster of 3 mons
+and 13 MemStore OSDs in this process (11 shard holders + two spares for
+the out-marked OSD's shards to remap to), one EC pool (plugin=tpu reed_sol_van k=8 m=3,
+host_cutover 64 KiB, the default 4 KiB stripe unit, pg_num 64, a 4 GiB
+HBM cache) and 8 librados clients.  After every OSD's codec is warm at
+every batch shape the windows reach, three counted windows run:
+
+  writes: 64 x 4 MiB write_full from the 8 clients (under
+     torch.profiler: the card's busy share), read back, and 100,001 B
+     appended to 8 objects; a sample of 32 objects' shard files and
+     HashInfo read from the OSD stores against the host oracle;
+  scrub: deep scrub of every PG (once folded from the cache, then with
+     the cache cleared through the CRC kernels), zero inconsistencies,
+     then one corrupted shard flagged and nothing else;
+  recovery: cache cleared, one OSD killed, every object read degraded,
+     the OSD marked out, until every lost shard sits rebuilt on its new
+     holder, equal to the lost bytes (a deep scrub with repair of a PG
+     whose lost shard recovery left unrebuilt, up to two rounds).
+
+In each window every kernel entry point launched exactly once per
+device dispatch of its kind (pipeline.stats() dev_dispatches_enc/_dec/
+_crc), at least one device dispatch ran, and the host served no stripe
+batch.  It prints GB/s and op latency p50/p99 of client writes, reads
+and degraded reads, scrub GB/s, recovery seconds, the mean op spans per
+write from the primaries' op trackers, and stripes per dispatch.
 
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The line before the last lists the kernels; the last line is
@@ -757,6 +783,472 @@ def phase_traces(payloads, codec, ecutil, optracker):
     emit("traces", spans_s=spans)
 
 
+# -- phase 9: the cluster path ------------------------------------------------
+#
+# A vstart cluster of ceph_tpu_torch daemons in this process: 3 mons and
+# 13 MemStore OSDs (the 11 shard holders k=8 m=3 needs, plus two spares:
+# with one, CRUSH leaves a hole in some PG once an OSD is marked out),
+# one EC pool at the default 4 KiB stripe unit, 8 librados clients with
+# one Rados handle each.
+
+CLUSTER_MONS, CLUSTER_OSDS, CLUSTER_PG_NUM = 3, 13, 64
+# 64 objects, not the 256 (1 GiB) of a full run: the cluster path runs
+# at ~30 MB/s in one interpreter, and the whole script keeps to its
+# time budget (object size, profile and stripe unit are not cut)
+CLUSTER_OBJECTS, CLUSTER_OBJECT_BYTES = 64, 4 << 20
+CLUSTER_CLIENTS = 8
+CLUSTER_APPENDS, CLUSTER_APPEND_BYTES = 8, 100_001   # not a stripe multiple
+CLUSTER_SAMPLE = 32
+CLUSTER_UNIT = 4096                       # ecutil.DEFAULT_STRIPE_UNIT
+CLUSTER_POOL = "ecpool"
+# host_cutover = MIN_DEVICE_BYTES: measured routing cannot move a batch
+# of 64 KiB or more to the host
+CLUSTER_PROFILE = {"plugin": "tpu", "technique": "reed_sol_van",
+                   "k": str(K), "m": str(M), "host_cutover": str(1 << 16)}
+CLUSTER_TIMEOUT = 600.0
+CLUSTER_RECOVERY_TIMEOUT = 300.0
+
+
+def cluster_conf():
+    from ceph_tpu_torch.utils.config import Config
+    return Config({
+        # MiniCluster's own defaults
+        "mon_tick_interval": 0.5, "osd_heartbeat_interval": 0.5,
+        "osd_heartbeat_grace": 8.0, "mon_osd_min_down_reporters": 2,
+        # the killed OSD is marked out by hand, after the degraded reads
+        "mon_osd_down_out_interval": 1e6,
+        "osd_ec_hbm_cache_bytes": HBM_CACHE_BYTES,
+        "osd_op_history_size": 4 * CLUSTER_OBJECTS,
+        "objecter_op_timeout": 120.0})
+
+
+def percentiles_ms(lat) -> dict:
+    a = 1e3 * np.asarray(lat, dtype=np.float64)
+    return {"p50": float(np.percentile(a, 50)),
+            "p99": float(np.percentile(a, 99))}
+
+
+def cluster_window(cuda_ec, ec_pipeline, tally, before: dict,
+                   what: str) -> dict:
+    """Close a counted window of the cluster phase: each kernel entry
+    point launched exactly once per device dispatch of its kind, at
+    least one device dispatch, and no stripe batch served by the host."""
+    torch.cuda.synchronize()
+    after = ec_pipeline.stats()
+    d = {k: after[k] - before[k] for k in (
+        "dispatches", "dev_dispatches", "host_dispatches",
+        "dev_dispatches_enc", "dev_dispatches_dec", "dev_dispatches_crc",
+        "stripes", "bytes_h2d", "bytes_d2h", "replans")}
+    launches_must_equal(cuda_ec, tally, {
+        "gf_encode": d["dev_dispatches_dec"],
+        "gf_encode_crc": d["dev_dispatches_enc"],
+        "crc32c_segments": d["dev_dispatches_crc"],
+        "crc32c_chain": d["dev_dispatches_enc"] + d["dev_dispatches_crc"]},
+        what)
+    if d["host_dispatches"] or not d["dev_dispatches"]:
+        raise AssertionError(f"{what} left the card: {d}")
+    d["stripes_per_dispatch"] = d["stripes"] / d["dispatches"]
+    return d
+
+
+def cluster_warm(cluster, pool_id, ec_pipeline, device) -> float:
+    """Every OSD's codec (each is a primary of some PGs) warm at every
+    batch shape the windows reach, and the scrub CRC channel at every
+    row bucket of both shard sizes: warm-ups launch kernels and serve
+    their first calls from the host, so none may happen in a window."""
+    from ceph_tpu_torch.ops.pipeline import next_bucket
+    L = CLUSTER_UNIT
+    S = CLUSTER_OBJECT_BYTES // (K * L)
+    S_app = -(-(CLUSTER_OBJECT_BYTES + CLUSTER_APPEND_BYTES) // (K * L))
+    S_tail = -(-CLUSTER_APPEND_BYTES // (K * L))
+    max_batch = int(cluster.conf.osd_ec_pipeline_max_batch)
+    whole = {next_bucket(n) for n in (S, S_app) + ((2 * S,) if 2 * S
+                                                   <= max_batch else ())}
+    t0 = time.monotonic()
+    for osd in cluster.osds.values():
+        warm_codec(osd.get_ec_codec(osd.osdmap.pools[pool_id]),
+                   sorted(whole), next_bucket(S_tail), device)
+    batch = int(cluster.conf.osd_deep_scrub_stripe_batch)
+    for size in (S * L, S_app * L):
+        for j in range(batch.bit_length()):
+            wait_warm(lambda: ec_pipeline.crc_fn_if_ready(
+                size, (1 << j, size), device), f"scrub CRC of {size} B")
+    return time.monotonic() - t0
+
+
+def warm_codec(codec, buckets, tail_bucket: int, device) -> None:
+    """One codec warm at the windows' encode and decode batch shapes."""
+    L, be = CLUSTER_UNIT, codec.backend
+    for S_pad in sorted(set(buckets) | {tail_bucket}):
+        wait_warm(lambda: be.fused_fn_if_ready(
+            codec.coding_matrix, (S_pad, K, L), device),
+            f"encode at {(S_pad, K, L)}")
+    for r in range(1, M + 1):
+        want = list(range(r))
+        present = [i for i in range(K + M) if i not in want][:K]
+        rows = codec._decode_rows(want, present)
+        for S_pad in buckets:
+            wait_warm(lambda: be.device_fn_if_ready(
+                "bytes", rows, (), (S_pad, K, L), device),
+                f"decode {r} at {(S_pad, K, L)}")
+
+
+def run_clients(ios, fn, n: int):
+    """fn(io, i) for i < n, object i on client i % len(ios), the clients
+    concurrent; returns (wall seconds, per-op seconds, results)."""
+    import threading
+    lat, out, errs = [0.0] * n, [None] * n, []
+
+    def worker(t):
+        try:
+            for i in range(t, n, len(ios)):
+                t0 = time.perf_counter()
+                out[i] = fn(ios[t], i)
+                lat[i] = time.perf_counter() - t0
+        except Exception as e:            # noqa: BLE001 (re-raised below)
+            errs.append(e)
+
+    threads = [threading.Thread(target=worker, args=(t,))
+               for t in range(len(ios))]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t0
+    if errs:
+        raise errs[0]
+    return wall, lat, out
+
+
+def write_spans(cluster) -> dict:
+    """Mean per write op of each span the primaries' op trackers kept
+    (client write ops only; sub-ops are the replicas' side)."""
+    spans: dict = {}
+    durations = []
+    for osd in cluster.osds.values():
+        for doc in osd.op_tracker.dump_historic_ops()["ops"]:
+            if doc.get("kind") != "client" or "writefull" not in \
+                    doc["description"]:
+                continue
+            durations.append(doc["duration"])
+            for sp in doc["spans"]:
+                spans.setdefault(sp["name"], []).append(sp["t1"] - sp["t0"])
+    n = max(1, len(durations))
+    return {"ops": len(durations),
+            "op_ms": 1e3 * float(np.sum(durations)) / n,
+            "span_ms": {k: 1e3 * float(np.sum(v)) / n
+                        for k, v in sorted(spans.items())}}
+
+
+def codec_routing(cluster) -> dict:
+    """The routing counters of every OSD's codecs, summed."""
+    tot: dict = {}
+    for osd in cluster.osds.values():
+        for codec in osd._ec_codecs.values():
+            for key, v in codec.stat_counters().items():
+                if isinstance(v, (int, float)) and not isinstance(v, bool):
+                    tot[key] = tot.get(key, 0) + v
+    return tot
+
+
+def shard_oracle(payload: bytes, coding, native, crc_mod):
+    """(S, k+m, L) chunks of `payload` at the cluster's stripe unit."""
+    W = K * CLUSTER_UNIT
+    S = -(-len(payload) // W)
+    buf = np.zeros(S * W, dtype=np.uint8)
+    buf[:len(payload)] = np.frombuffer(payload, np.uint8)
+    allc, _ = host_oracle(coding, buf.reshape(S, K, CLUSTER_UNIT), native,
+                          crc_mod)
+    return allc
+
+
+def check_shards(cluster, pool_id, oid, payload, coding, native, crc_mod,
+                 denc, HINFO_KEY, only=None):
+    """Every shard file of `oid` (or the shard positions in `only`) and
+    its HashInfo, read straight from the holders' stores, against the
+    host oracle; returns {shard: holder}."""
+    osdmap = cluster.leader().osdmon.osdmap
+    pgid = osdmap.object_to_pg(pool_id, oid)
+    _up, acting = osdmap.pg_to_up_acting_osds(pgid)
+    allc = shard_oracle(payload, coding, native, crc_mod)
+    full = len(payload) // (K * CLUSTER_UNIT)
+    holders = {}
+    for shard, holder in enumerate(acting):
+        if only is not None and shard not in only:
+            continue
+        store = cluster.osds[holder].store
+        name = f"{oid}.s{shard}"
+        data = bytes(store.read(f"pg_{pgid}", name))
+        hinfo = denc.loads(store.getattr(f"pg_{pgid}", name, HINFO_KEY))
+        want = allc[:, shard].tobytes()
+        if data != want:
+            raise AssertionError(f"{name} on osd.{holder} != oracle")
+        if hinfo["crc"] != crc_mod.crc32c(0, want) or \
+                hinfo["crc_prefix"] != crc_mod.crc32c(
+                    0, want[:full * CLUSTER_UNIT]) or \
+                hinfo["size"] != len(payload):
+            raise AssertionError(f"{name} on osd.{holder}: HashInfo "
+                                 f"{hinfo} != oracle")
+        holders[shard] = holder
+    return holders
+
+
+def unclean(cluster, pool_id) -> list:
+    """Why wait_for_clean would say no: per PG of the pool, the members
+    whose copy is missing, incomplete or (primary) inactive."""
+    osdmap = cluster.leader().osdmon.osdmap
+    out = []
+    for pgid in osdmap.all_pgs():
+        if pgid.pool != pool_id:
+            continue
+        acting = osdmap.pg_to_up_acting_osds(pgid)[1]
+        live = [o for o in acting if o >= 0]
+        bad = []
+        for o in live:
+            pg = cluster.osds[o].pgs.get(pgid) if o in cluster.osds else None
+            if pg is None or not pg.backfill_complete or pg.pglog.missing \
+                    or (o == live[0] and (not pg.active
+                                          or pg.ec_audit_pending)):
+                bad.append((o, None if pg is None else (
+                    pg.backfill_complete, len(pg.pglog.missing),
+                    pg.active, pg.ec_audit_pending)))
+        if bad or len(live) < len(acting):
+            out.append((str(pgid), acting, bad))
+    return out[:12]
+
+
+def has_shard(cluster, pool_id, i: int, shard: int) -> bool:
+    osdmap = cluster.leader().osdmon.osdmap
+    pg = osdmap.object_to_pg(pool_id, f"obj{i}")
+    osd = cluster.osds.get(osdmap.pg_to_up_acting_osds(pg)[1][shard])
+    return osd is not None and \
+        f"obj{i}.s{shard}" in osd.store.collection_list(f"pg_{pg}")
+
+
+def scrub_all(cluster, pool_id, threads: int = CLUSTER_CLIENTS) -> dict:
+    """Deep scrub of every PG of the pool from its primary, `threads`
+    PGs at a time; returns {pgid: result}."""
+    from concurrent.futures import ThreadPoolExecutor
+    osdmap = cluster.leader().osdmon.osdmap
+    pgids = [p for p in osdmap.all_pgs() if p.pool == pool_id]
+
+    def one(pgid):
+        _up, acting = osdmap.pg_to_up_acting_osds(pgid)
+        primary = next(o for o in acting if o >= 0)
+        return pgid, cluster.osds[primary].get_pg(pgid).scrub(deep=True)
+
+    with ThreadPoolExecutor(threads) as pool:
+        return dict(pool.map(one, pgids))
+
+
+def phase_cluster(rng, cuda_ec, ec_pipeline, hbm_cache, native, crc_mod,
+                  device, tally):
+    from ceph_tpu_torch.osd.pglog import HINFO_KEY
+    from ceph_tpu_torch.store import Transaction
+    from ceph_tpu_torch.utils import denc
+    from ceph_tpu_torch.vstart import MiniCluster
+
+    t_start = time.perf_counter()
+    cluster = MiniCluster(num_mons=CLUSTER_MONS, num_osds=CLUSTER_OSDS,
+                          conf=cluster_conf())
+    try:
+        cluster.start(timeout=120.0)
+        admin = cluster.client()
+        admin.create_ec_pool(CLUSTER_POOL, "k8m3", CLUSTER_PROFILE,
+                             pg_num=CLUSTER_PG_NUM)
+        pool_id = admin.open_ioctx(CLUSTER_POOL).pool_id
+        cluster.wait_for_clean(CLUSTER_TIMEOUT)
+        boot_s = time.perf_counter() - t_start
+        warm_s = cluster_warm(cluster, pool_id, ec_pipeline, device)
+        coding = cluster.osds[0].get_ec_codec(
+            cluster.osds[0].osdmap.pools[pool_id]).coding_matrix
+        ios = [cluster.client(f"client.load{t}").open_ioctx(CLUSTER_POOL)
+               for t in range(CLUSTER_CLIENTS)]
+        payloads = [rng.integers(0, 256, CLUSTER_OBJECT_BYTES,
+                                 dtype=np.uint8)
+                    for _ in range(CLUSTER_OBJECTS)]
+        nbytes = CLUSTER_OBJECTS * CLUSTER_OBJECT_BYTES
+        out = {"mons": CLUSTER_MONS, "osds": CLUSTER_OSDS,
+               "pg_num": CLUSTER_PG_NUM, "profile": CLUSTER_PROFILE,
+               "objects": CLUSTER_OBJECTS,
+               "object_bytes": CLUSTER_OBJECT_BYTES,
+               "clients": CLUSTER_CLIENTS, "boot_s": boot_s,
+               "warm_s": warm_s}
+        emit("cluster_boot", **out)
+
+        # -- window 1: writes, reads, appends ------------------------------
+        torch.cuda.synchronize()
+        cuda_ec.reset_launches()
+        before = ec_pipeline.stats()
+        prof = torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA])
+        with prof:
+            w_wall, w_lat, _ = run_clients(
+                ios, lambda io, i: io.write_full(f"obj{i}", payloads[i]),
+                CLUSTER_OBJECTS)
+        r_wall, r_lat, back = run_clients(
+            ios, lambda io, i: io.read(f"obj{i}"), CLUSTER_OBJECTS)
+        for i, b in enumerate(back):
+            if bytes(b) != payloads[i].tobytes():
+                raise AssertionError(f"read of obj{i} != payload")
+        back = None
+        finals = {i: payloads[i].tobytes() for i in range(CLUSTER_OBJECTS)}
+        for i in range(CLUSTER_APPENDS):
+            delta = rng.integers(0, 256, CLUSTER_APPEND_BYTES,
+                                 dtype=np.uint8).tobytes()
+            ios[0].append(f"obj{i}", delta)
+            finals[i] += delta
+            if bytes(ios[0].read(f"obj{i}")) != finals[i]:
+                raise AssertionError(f"append to obj{i} != payload+delta")
+        d_write = cluster_window(cuda_ec, ec_pipeline, tally, before,
+                                 "cluster writes, reads and appends")
+        try:
+            busy, n_events = device_busy_share(prof, w_wall)
+        except (AttributeError, TypeError, ValueError) as e:
+            busy, n_events = None, f"not measured: {e!r}"
+        sample = list(range(CLUSTER_APPENDS)) + [
+            int(i) for i in np.linspace(CLUSTER_APPENDS, CLUSTER_OBJECTS - 1,
+                                        CLUSTER_SAMPLE - CLUSTER_APPENDS)]
+        for i in sample:
+            check_shards(cluster, pool_id, f"obj{i}", finals[i], coding,
+                         native, crc_mod, denc, HINFO_KEY)
+        step = dict(
+            write_gbs=nbytes / w_wall / 1e9, write_lat_ms=percentiles_ms(
+                w_lat), read_gbs=nbytes / r_wall / 1e9,
+            read_lat_ms=percentiles_ms(r_lat),
+            read_cache_bytes_served=hbm_cache.stats()["read_bytes_served"],
+            device_busy_share=busy, profiler_device_events=n_events,
+            write_window=d_write, write_trace=write_spans(cluster),
+            shards_checked_objects=len(sample),
+            elapsed_s=time.perf_counter() - t_start)
+        emit("cluster_writes", **step)
+        out.update(step)
+
+        # -- window 2: deep scrub ------------------------------------------
+        # the cache holds every object, and a scrub of a cached object
+        # folds its CRCs on the host from the entry (phase 7 checks
+        # that path): cleared, every shard goes through the CRC kernels
+        hbm_cache.get().clear()
+        torch.cuda.synchronize()
+        cuda_ec.reset_launches()
+        before = ec_pipeline.stats()
+        t0 = time.perf_counter()
+        results = scrub_all(cluster, pool_id)
+        s_wall = time.perf_counter() - t0
+        if any(r["inconsistent"] for r in results.values()):
+            raise AssertionError(f"clean scrub found inconsistencies")
+        checked = sum(r["checked"] for r in results.values())
+        osdmap = cluster.leader().osdmon.osdmap
+        pgid = osdmap.object_to_pg(pool_id, "obj9")
+        _up, acting = osdmap.pg_to_up_acting_osds(pgid)
+        holder, name = acting[2], "obj9.s2"
+        store = cluster.osds[holder].store
+        good = bytes(store.read(f"pg_{pgid}", name, 4096, 16))
+        store.apply_transaction(Transaction().write(
+            f"pg_{pgid}", name, 4096, bytes(b ^ 0xA5 for b in good)))
+        dirty = scrub_all(cluster, pool_id)
+        found = [(str(p), i) for p, r in dirty.items()
+                 for i in r["inconsistent"]]
+        if found != [(str(pgid), {"object": name, "osd": holder})]:
+            raise AssertionError(f"corrupted {name} on osd.{holder}: "
+                                 f"scrub found {found}")
+        store.apply_transaction(Transaction().write(
+            f"pg_{pgid}", name, 4096, good))
+        d_scrub = cluster_window(cuda_ec, ec_pipeline, tally, before,
+                                 "cluster deep scrub")
+        shard_bytes = sum(len(finals[i]) for i in finals) * (K + M) // K
+        step = dict(scrub_gbs=shard_bytes / s_wall / 1e9,
+                    scrub_checked=checked,
+                    scrub_window=d_scrub, corrupted_flagged=found,
+                    elapsed_s=time.perf_counter() - t_start)
+        emit("cluster_scrub", **step)
+        out.update(step)
+
+        # -- window 3: degraded reads and recovery -------------------------
+        # the OSD to lose comes from the seed
+        victim = int(rng.integers(CLUSTER_OSDS))
+        lost = {}
+        for i in range(CLUSTER_OBJECTS):
+            oid = f"obj{i}"
+            pg = osdmap.object_to_pg(pool_id, oid)
+            _up, acting = osdmap.pg_to_up_acting_osds(pg)
+            if victim in acting:
+                shard = acting.index(victim)
+                lost[i] = (shard, bytes(cluster.osds[victim].store.read(
+                    f"pg_{pg}", f"{oid}.s{shard}")))
+        hbm_cache.get().clear()
+        torch.cuda.synchronize()
+        cuda_ec.reset_launches()
+        before = ec_pipeline.stats()
+        cluster.kill_osd(victim)
+        cluster.mark_osd_down(victim)
+        cluster.wait_for_osd_down(victim, 60.0)
+        g_wall, g_lat, back = run_clients(
+            ios, lambda io, i: io.read(f"obj{i}"), CLUSTER_OBJECTS)
+        for i, b in enumerate(back):
+            if bytes(b) != finals[i]:
+                raise AssertionError(f"degraded read of obj{i} != payload")
+        back = None
+        emit("cluster_degraded_reads",
+             degraded_read_gbs=sum(map(len, finals.values())) / g_wall / 1e9,
+             degraded_read_lat_ms=percentiles_ms(g_lat),
+             elapsed_s=time.perf_counter() - t_start)
+        t0 = time.perf_counter()
+        cluster.mark_osd_out(victim)
+        try:
+            cluster.wait_for_clean(CLUSTER_RECOVERY_TIMEOUT)
+        except TimeoutError:
+            raise TimeoutError(f"not clean: {unclean(cluster, pool_id)}")
+        recovery_s = time.perf_counter() - t0
+        # clean includes every EC primary's role audit: each lost shard
+        # file must already sit on its new holder
+        absent = [(i, shard) for i, (shard, _d) in lost.items()
+                  if not has_shard(cluster, pool_id, i, shard)]
+        if absent:
+            raise AssertionError(f"clean, but lost shards not rebuilt: "
+                                 f"{absent} {unclean(cluster, pool_id)}")
+        d_rec = cluster_window(cuda_ec, ec_pipeline, tally, before,
+                               "cluster degraded reads and recovery")
+        osdmap = cluster.leader().osdmon.osdmap
+        for i, (shard, data) in lost.items():
+            pg = osdmap.object_to_pg(pool_id, f"obj{i}")
+            holder = osdmap.pg_to_up_acting_osds(pg)[1][shard]
+            if holder == victim or bytes(
+                    cluster.osds[holder].store.read(
+                        f"pg_{pg}", f"obj{i}.s{shard}")) != data:
+                raise AssertionError(f"rebuilt obj{i}.s{shard} != lost")
+            if i in sample:
+                check_shards(cluster, pool_id, f"obj{i}", finals[i], coding,
+                             native, crc_mod, denc, HINFO_KEY, only={shard})
+        # every acknowledged write reads back from the recovered pool
+        _wall, _lat, back = run_clients(
+            ios, lambda io, i: io.read(f"obj{i}"), CLUSTER_OBJECTS)
+        for i, b in enumerate(back):
+            if bytes(b) != finals[i]:
+                raise AssertionError(f"obj{i} after recovery != payload")
+        back = None
+        step = dict(degraded_read_gbs=sum(map(len, finals.values()))
+                   / g_wall / 1e9, degraded_read_lat_ms=percentiles_ms(
+                       g_lat), victim=victim, recovery_s=recovery_s,
+                   rebuilt_shards_checked=len(lost),
+                   recovery_window=d_rec,
+                   codecs_degraded=sum(
+                       bool(getattr(c, "degraded", False))
+                       for o in cluster.osds.values()
+                       for c in o._ec_codecs.values()),
+                   routing=codec_routing(cluster),
+                   elapsed_s=time.perf_counter() - t_start)
+        emit("cluster_recovery", **step)
+        if step["codecs_degraded"]:
+            raise AssertionError("an OSD's codec degraded to the host")
+        out.update(step)
+        return out
+    finally:
+        cluster.stop()
+        ec_pipeline.get().stop()
+
+
 # the kernels of the main path: writes (fused pass), rebuilds, and the
 # deep-scrub CRC channel (crc32c_segments + crc32c_chain)
 KERNEL_META = {
@@ -821,6 +1313,9 @@ def main() -> int:
     emit("pipeline", stats={k: v for k, v in ec_pipeline.stats().items()
                             if not isinstance(v, dict)})
     ec_pipeline.get().stop()
+    payloads = written = None
+    phase_cluster(rng, cuda_ec, ec_pipeline, hbm_cache, native, crc_mod,
+                  device, counts)
     by_source = {src: sum(n for name, n in counts.items()
                           if name.startswith(src)) for src in cuda_ec.SOURCES}
     emit("main_path_launches", launches=counts, by_source=by_source)

@@ -170,6 +170,33 @@ class TestAccounting:
         assert ent is not None and ent.data_bytes() == d2.tobytes()
         assert cache.stats()["lane_drops"] == 2
 
+    def test_failed_fetch_raises_unless_the_entry_is_gone(self,
+                                                          monkeypatch):
+        """A device read failure propagates (an OSD must not quietly
+        serve the store instead of reporting a broken card); only an
+        entry the cache dropped with its quarantined lane reads as
+        None, the "gone" the OSD's store fallback is for."""
+        rng = np.random.default_rng(8)
+        cache = hbm_cache.HbmStripeCache()
+        _stage_commit(cache, "pg_a", "obj", (1, 1), rng)
+        ent = cache.lookup("pg_a", "obj", version=(1, 1))
+        d2h0 = hbm_cache.stats()["bytes_d2h"]
+
+        def broken(tensors, ready=None):
+            raise RuntimeError("CUDA error: an illegal memory access")
+
+        monkeypatch.setattr(hbm_cache, "to_host", broken)
+        with pytest.raises(RuntimeError, match="illegal memory"):
+            ent.data_bytes()
+        for shard in (0, K):
+            with pytest.raises(RuntimeError, match="illegal memory"):
+                ent.shard_bytes(shard)
+        cache.drop_lane(0)
+        assert ent.lane_dropped
+        assert ent.data_bytes() is None
+        assert ent.shard_bytes(0) is None and ent.shard_bytes(K) is None
+        assert hbm_cache.stats()["bytes_d2h"] == d2h0
+
     def test_commit_wrong_version_rejected(self):
         rng = np.random.default_rng(4)
         cache = hbm_cache.HbmStripeCache()
