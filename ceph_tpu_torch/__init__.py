@@ -1,7 +1,7 @@
-"""ceph-tpu on PyTorch: the ``ceph_tpu`` daemons (mons, OSDs, mgr),
-librados clients and erasure-code path ported to PyTorch, with
-hand-written CUDA kernels for NVIDIA Hopper (sm_90a) under every EC
-byte.  Wire format and on-disk layout are ``ceph_tpu``'s.
+"""ceph-tpu on PyTorch: the ``ceph_tpu`` daemons (mons, OSDs, mgr, MDS,
+RGW), librados clients, front doors and erasure-code path ported to
+PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (sm_90a)
+under every EC byte.  Wire format and on-disk layout are ``ceph_tpu``'s.
 
 Layout mirrors the JAX package so each module's counterpart is easy to
 find:
@@ -14,7 +14,11 @@ find:
   osd/       the OSD: PGs, peering, replicated and EC backends, scrub,
              recovery, stripe math (ecutil)
   mon/       paxos monitors (maps, health, EC profiles)
-  client/    objecter + librados-style client API
+  client/    objecter + librados-style client API, librbd's
+             ObjectCacher, the flat B-tree
+  rgw/       S3/Swift gateway (SigV4, multisite sync agent)
+  fs/        CephFS client and MDS;  rbd/ block images, rbd-mirror
+  journal/   the Journaler (RBD journaling, mirroring)
   msg/       typed messenger (blocking and event-loop stacks)
   store/     ObjectStore backends (memstore, filestore, kstore,
              blockstore)
@@ -22,8 +26,8 @@ find:
              cls/ object classes; compressor/; mgr/
   utils/     config, logging, fault injection, counters, op tracing
   native/    C++ host kernels (AVX2 GF math, hw CRC32C)
-  vstart.py  MiniCluster (mons + OSDs + mgr in one process);
-  daemons.py the mon, osd and mgr entry points
+  vstart.py  MiniCluster (mons + OSDs + mgr, MDS, RGW in one process);
+  daemons.py the mon, osd, mgr, mds and rgw entry points
 
 Device: every entry point runs on ``cuda`` unless the caller asks for
 the CPU with :func:`set_device`.  There is no silent fallback: on a

@@ -3,10 +3,13 @@
     python -m ceph_tpu_torch.daemons mon --name a -c ceph.conf
     python -m ceph_tpu_torch.daemons osd --id 0 -c ceph.conf
     python -m ceph_tpu_torch.daemons mgr --name x -c ceph.conf
+    python -m ceph_tpu_torch.daemons mds --name a -c ceph.conf
+    python -m ceph_tpu_torch.daemons rgw --port 7480 -c ceph.conf
 
 Every role runs its EC work on the package device: ``cuda`` (an OSD
 with no card raises at start) unless a caller that imports this module
-calls ``ceph_tpu_torch.set_device("cpu")`` before ``main()``.
+calls ``ceph_tpu_torch.set_device("cpu")`` before ``main()``.  The mds
+and rgw roles do no device work of their own.
 
 ceph.conf is the usual ini (utils/config.py parse_file) plus cluster
 topology the binaries need to boot:
@@ -123,6 +126,30 @@ def main_mgr(args) -> None:
     _run_forever(mgr)
 
 
+def main_mds(args) -> None:
+    conf = load_conf(args.conf, f"mds.{args.name}")
+    monmap = monmap_from_conf(conf)
+    from .fs.mds import MDSDaemon
+    mds = MDSDaemon(args.name, monmap, conf=conf)
+    mds.start()
+    print(f"mds.{args.name} up at {mds.msgr.addr}", flush=True)
+    _run_forever(mds)
+
+
+def main_rgw(args) -> None:
+    conf = load_conf(args.conf, "client.rgw")
+    monmap = monmap_from_conf(conf)
+    from .client import Rados
+    from .rgw import RGWDaemon
+    r = Rados(monmap, "client.rgw", conf=conf)
+    r.connect()
+    rgw = RGWDaemon(r, port=args.port, access_key=args.access_key,
+                    secret_key=args.secret_key)
+    rgw.start()
+    print(f"rgw up at http://127.0.0.1:{rgw.port}", flush=True)
+    _run_forever(rgw)
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(prog="ceph-tpu-torch-daemon")
     sub = parser.add_subparsers(dest="role", required=True)
@@ -142,11 +169,25 @@ def main(argv=None) -> None:
     p_mgr.add_argument("--name", required=True)
     p_mgr.add_argument("-c", "--conf")
 
+    p_mds = sub.add_parser("mds")
+    p_mds.add_argument("--name", required=True)
+    p_mds.add_argument("-c", "--conf")
+
+    p_rgw = sub.add_parser("rgw")
+    p_rgw.add_argument("--port", type=int, default=7480)
+    p_rgw.add_argument("--access-key", default="")
+    p_rgw.add_argument("--secret-key", default="")
+    p_rgw.add_argument("-c", "--conf")
+
     args = parser.parse_args(argv)
     if args.role == "mon":
         main_mon(args)
     elif args.role == "mgr":
         main_mgr(args)
+    elif args.role == "mds":
+        main_mds(args)
+    elif args.role == "rgw":
+        main_rgw(args)
     else:
         main_osd(args)
 

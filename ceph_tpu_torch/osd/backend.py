@@ -189,6 +189,8 @@ class PGBackendBase:
         if state is None or state["waiting"]:
             return
         del self._inflight[reqid]
+        if state.get("kind") == "ec":
+            self._wake_reads_behind_writes(state["msg"].oid)
         failed = state.get("failed")
         if failed:
             self._record_completed(reqid, failed, state["version"])

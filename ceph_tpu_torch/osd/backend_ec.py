@@ -176,12 +176,15 @@ class ECBackend:
                     txn.setattr(self.cid, soid, HINFO_KEY, hinfo)
                 txn.setattr(self.cid, soid, VER_KEY,
                             repr(version).encode())
+                # the omap rides on every shard, as the xattrs do: a
+                # copy on shard 0 alone is lost to reads while that
+                # shard's holder is down (recovery_svc.ec_get_omap)
                 for op in msg.ops:
                     if op[0] == "setxattr":
                         txn.setattr(self.cid, soid, "u." + op[1], op[2])
-                    elif op[0] == "omap_set" and shard == 0:
+                    elif op[0] == "omap_set":
                         txn.omap_setkeys(self.cid, soid, op[1])
-                    elif op[0] == "omap_rm" and shard == 0:
+                    elif op[0] == "omap_rm":
                         txn.omap_rmkeys(self.cid, soid, op[1])
             if shard == self.role_of(self.osd.whoami):
                 try:
@@ -364,10 +367,10 @@ class ECBackend:
                 if op[0] == "setxattr":
                     txn.setattr(self.cid, shard_oid(oid, shard),
                                 "u." + op[1], op[2])
-                elif op[0] == "omap_set" and shard == 0:
+                elif op[0] == "omap_set":
                     txn.omap_setkeys(self.cid, shard_oid(oid, shard),
                                      op[1])
-                elif op[0] == "omap_rm" and shard == 0:
+                elif op[0] == "omap_rm":
                     txn.omap_rmkeys(self.cid, shard_oid(oid, shard),
                                     op[1])
             # each shard chains its OWN HashInfo from these
@@ -888,7 +891,61 @@ class ECBackend:
             reply.rpc_tid = getattr(msg, "rpc_tid", None)
             self.osd.send_osd_reply(conn, reply)
 
+    def _ec_local_shard(self, oid: str, shard: int | None = None) -> str:
+        """The name of a shard file of `oid` that this OSD holds: the
+        one at `shard` (default: our role), else any other at the
+        object's current version.  Every shard carries the object's
+        xattrs and omap, and a member going down can move the shard
+        roles of the others (the role audit moves their files later):
+        reads of either must not fail or read empty meanwhile."""
+        store = self.osd.store
+        want = shard_oid(oid, self.role_of(self.osd.whoami)
+                         if shard is None else shard)
+        if store.exists(self.cid, want):
+            return want
+        cur = self.pglog.objects.get(oid)
+        for s in range(len(self.acting)):
+            name = shard_oid(oid, s)
+            try:
+                ver = _parse_ev(store.getattr(self.cid, name, VER_KEY))
+            except StoreError:
+                continue
+            if cur is not None and ver == tuple(cur):
+                return name
+        return want
+
+    def _ec_write_gathering(self, oid: str) -> bool:
+        return any(st.get("kind") == "ec" and st["msg"].oid == oid
+                   for st in self._inflight.values())
+
+    def _wake_reads_behind_writes(self, oid: str) -> None:
+        """The last gathering write of `oid` finished (acked or
+        failed): resume its parked reads through the op queue.  Caller
+        holds self.lock."""
+        if self._ec_write_gathering(oid):
+            return
+        for conn, msg in self._reads_behind_writes.pop(oid, ()):
+            self.osd.op_wq.queue(self.pgid, self.osd._handle_op, conn,
+                                 msg)
+
+    def _drop_reads_behind_writes(self) -> None:
+        """New interval: EAGAIN the parked reads (clients resend to
+        the re-peered pg).  Caller holds self.lock."""
+        parked = list(self._reads_behind_writes.values())
+        self._reads_behind_writes.clear()
+        for ops in parked:
+            for conn, msg in ops:
+                self._reply(conn, msg, -11, [])
+
     def _ec_read(self, conn, msg) -> None:
+        if self._ec_write_gathering(msg.oid):
+            # a write of this object has its shards applied on some
+            # holders and not yet on others: a gather across them
+            # would decode two generations into one payload.  The read
+            # waits for the write (the obc rw lock of PrimaryLogPG)
+            self._reads_behind_writes.setdefault(msg.oid, []).append(
+                (conn, msg))
+            return
         out = []
         result = 0
         store = self.osd.store
@@ -922,13 +979,12 @@ class ECBackend:
                     out.append({"size": size,
                                 "version": self._obj_version(msg.oid)})
                 elif op[0] == "getxattr":
-                    my = self.role_of(self.osd.whoami)
                     out.append(store.getattr(
-                        self.cid, shard_oid(msg.oid, my), "u." + op[1]))
+                        self.cid, self._ec_local_shard(msg.oid),
+                        "u." + op[1]))
                 elif op[0] == "getxattrs":
-                    my = self.role_of(self.osd.whoami)
                     out.append({k[2:]: v for k, v in store.getattrs(
-                        self.cid, shard_oid(msg.oid, my)).items()
+                        self.cid, self._ec_local_shard(msg.oid)).items()
                         if k.startswith("u.")})
                 elif op[0] == "omap_get":
                     out.append(self.osd.ec_get_omap(self.pgid, msg.oid,

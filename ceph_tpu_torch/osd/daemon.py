@@ -43,7 +43,7 @@ from .messages import (MOSDECSubOpRead, MOSDECSubOpReadReply,
                        MPGInfo, MPGPush, MPGPushReply, MOSDScrub,
                        MWatchNotifyAck, sender_id)
 from .osdmap import OSDMap, PgId
-from .pg import HINFO_KEY, PG, VER_KEY, shard_oid
+from .pg import HINFO_KEY, PG, VER_KEY
 
 
 from .recovery_svc import RecoveryService  # noqa: E402
@@ -1350,8 +1350,10 @@ class OSDDaemon(Dispatcher, RecoveryService, ScrubService):
             reply.rpc_tid = getattr(msg, "rpc_tid", None)
             self.send_osd_reply(conn, reply)
         elif msg.op == "ec_omap":
+            shard = int(getattr(msg, "shard", 0) or 0)
             try:
-                omap = self.store.omap_get(pg.cid, shard_oid(msg.oid, 0))
+                omap = self.store.omap_get(
+                    pg.cid, pg._ec_local_shard(msg.oid, shard))
             except StoreError:
                 omap = {}
             reply = MPGInfo(op="info", pgid=msg.pgid,

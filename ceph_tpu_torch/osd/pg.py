@@ -112,6 +112,9 @@ class PG(ReplicatedBackend, ECBackend, CacheTier, SnapOps, Peering,
         self.split_pending = False
         self.lock = threading.RLock()
         self._inflight: dict[tuple, dict] = {}   # reqid -> gather state
+        # EC reads of an object whose write is still gathering its
+        # shards PARK here until it finishes (oid -> [(conn, msg)])
+        self._reads_behind_writes: dict[str, list] = {}
         # serve-during-repair: client ops touching an object in the
         # pg's `missing` set PARK here until the recovery pull lands
         # (oid -> {"ops": [(conn, msg)], "retries": n}) — serving
@@ -312,6 +315,7 @@ class PG(ReplicatedBackend, ECBackend, CacheTier, SnapOps, Peering,
                 self._failed_floor = None    # peering reconciles
                 self._drop_parked()          # dead interval's sub-ops
                 self._drop_recovery_blocked()   # clients re-send
+                self._drop_reads_behind_writes()    # clients re-send
                 self._pull_queued_at.clear()    # new round re-pulls
                 self._heal_pushed_at.clear()
                 self.peer_last_backfill.clear()  # peering re-learns

@@ -1041,21 +1041,23 @@ class RecoveryService:
             return dict(out)
 
     def ec_get_omap(self, pgid: PgId, oid: str, acting: list[int]) -> dict:
-        """omap lives on shard 0; fetch from its holder when that is
-        not us (the round-2 remote path silently returned {})."""
+        """The omap from shard 0's holder, or, while that holder is
+        down, from the lowest live shard's: writes set it on every
+        shard (the remote path of an early round silently returned
+        {})."""
         pg = self.get_pg(pgid)
-        holder = acting[0] if acting else ITEM_NONE
+        live = [(s, o) for s, o in enumerate(acting) if o != ITEM_NONE]
+        if not live:
+            raise StoreError(5, "EC omap: no shard holder up")
+        shard, holder = live[0]
         if holder == self.whoami:
             try:
-                return self.store.omap_get(pg.cid, shard_oid(oid, 0))
+                return self.store.omap_get(pg.cid,
+                                           pg._ec_local_shard(oid, shard))
             except StoreError:
                 return {}
-        if holder == ITEM_NONE:
-            # shard 0 lost: any surviving shard that recovery rebuilt
-            # would live under a different holder; give up honestly
-            raise StoreError(5, "EC omap: shard 0 holder down")
         reply = self._call(holder, MPGInfo(
-            op="ec_omap", pgid=str(pgid), oid=oid,
+            op="ec_omap", pgid=str(pgid), oid=oid, shard=shard,
             epoch=self.osdmap.epoch), timeout=5.0)
         if reply is None:
             raise StoreError(110, "EC omap fetch timed out")

@@ -1,5 +1,6 @@
 """Command-line tools of the PyTorch port: the offline pg log dump
-(pglog_dump, which the OSD's admin socket also serves) and the kernel
+(pglog_dump, which the OSD's admin socket also serves), the rbd tool
+(rbd_cli), the seeded mixed-door load harness (loadgen) and the kernel
 timing probe (kernel_probe, run on the card)."""
 
 from __future__ import annotations

@@ -1,14 +1,18 @@
 """MiniCluster: the vstart.sh / ceph-helpers.sh analog.
 
-Launches a real cluster (N monitors + M OSDs + optional mgrs, real
-messengers on localhost ports) inside one process — the reference's
-tier-3 test pattern (qa/workunits/ceph-helpers.sh run_mon/run_osd) —
-and hands back connected Rados clients.
+Launches a real cluster (N monitors + M OSDs, real messengers on
+localhost ports) inside one process — the reference's tier-3 test
+pattern (qa/workunits/ceph-helpers.sh run_mon/run_osd) — and hands back
+connected Rados clients.  On demand it also starts mgrs (``start_mgr``),
+CephFS metadata servers (``start_mds``) and S3/Swift gateways
+(``start_rgw``).
 
 The OSDs' EC work runs on the package device: ``cuda`` (the CUDA
 kernels, one pipeline lane per card) unless the caller asked for the
 CPU with ``ceph_tpu_torch.set_device("cpu")`` first.  With the default
-device and no card, the first OSD's start raises.
+device and no card, the first OSD's start raises.  An MDS or a gateway
+does no device work of its own: the EC work its clients cause runs on
+the OSDs.
 """
 
 from __future__ import annotations
@@ -63,6 +67,8 @@ class MiniCluster:
         self._dead_mon_stores: dict[str, object] = {}
         self.osds: dict[int, OSDDaemon] = {}
         self.mgrs: list = []
+        self.mdss: list = []
+        self.rgws: list = []
         self.num_osds = num_osds
         self.store_kind = store_kind
         self.store_dir = store_dir
@@ -129,6 +135,48 @@ class MiniCluster:
         self.mgrs.append(mgr)
         mgr.start()
         return mgr
+
+    def start_mds(self, name: str = "a", metadata_pool: str =
+                  "cephfs_metadata", data_pool: str = "cephfs_data",
+                  rank: int = 0):
+        from .fs.mds import MDSDaemon
+        mds = MDSDaemon(name, self.monmap, conf=self.conf,
+                        metadata_pool=metadata_pool,
+                        data_pool=data_pool, clock=self.clock,
+                        rank=rank)
+        self.mdss.append(mds)
+        mds.start()
+        return mds
+
+    def start_rgw(self, port: int = 0, access_key: str = "",
+                  secret_key: str = "", data_pool: str | None = None):
+        from .rgw import DATA_POOL, RGWDaemon
+        # the gateway's objecter must never ABANDON an in-flight op: a
+        # rados op that hits objecter_op_timeout client-side can still
+        # sit queued at an OSD behind peering and apply later — after
+        # the gateway has 5xx'd and the front-door client has retried
+        # with a NEWER mutation, the zombie resurrects the old state
+        # (observed as a stale read / tombstone resurrection under the
+        # storm drills).  Real radosgw runs with no objecter op
+        # timeout and surfaces stalls as slow requests; mirror that
+        # with a per-gateway conf overlay so test-tightened cluster
+        # timeouts (MDS starvation workarounds) don't leak in
+        gconf = Config(dict(self.conf._values))
+        gconf.set_val("objecter_op_timeout", 86400.0)
+        gconf.apply_changes()
+        cli = Rados(self.monmap, f"client.rgw{len(self.rgws)}",
+                    conf=gconf)
+        cli.connect()
+        self._clients.append(cli)
+        # a distinct data_pool per gateway makes each one a ZONE:
+        # disjoint object namespaces on one cluster, replicated only
+        # by the multisite sync agent (rgw/sync.py)
+        rgw = RGWDaemon(cli, port=port, access_key=access_key,
+                        secret_key=secret_key,
+                        data_pool=data_pool or DATA_POOL)
+        self.rgws.append(rgw)
+        rgw.start()
+        return rgw
 
     def start_osd(self, osd_id: int) -> OSDDaemon:
         path = (f"{self.store_dir}/osd{osd_id}" if self.store_dir else "")
@@ -227,8 +275,13 @@ class MiniCluster:
 
     def stop(self) -> None:
         self._stopping = True
+        # gateways first: they serve HTTP through these rados clients
+        for rgw in self.rgws:
+            rgw.shutdown()
         for c in self._clients:
             c.shutdown()
+        for mds in self.mdss:
+            mds.shutdown()
         for mgr in self.mgrs:
             mgr.shutdown()
         for osd in self.osds.values():

@@ -62,16 +62,44 @@ every batch shape the windows reach, three counted windows run:
      the cache cleared through the CRC kernels), zero inconsistencies,
      then one corrupted shard flagged and nothing else;
   recovery: cache cleared, one OSD killed, every object read degraded,
-     the OSD marked out, until every lost shard sits rebuilt on its new
-     holder, equal to the lost bytes (a deep scrub with repair of a PG
-     whose lost shard recovery left unrebuilt, up to two rounds).
+     the OSD marked out, until the cluster is clean; every lost shard
+     must then sit rebuilt by recovery on its new holder, equal to the
+     lost bytes (no scrub repair: a shard left unrebuilt fails the phase).
 
-In each window every kernel entry point launched exactly once per
-device dispatch of its kind (pipeline.stats() dev_dispatches_enc/_dec/
-_crc), at least one device dispatch ran, and the host served no stripe
-batch.  It prints GB/s and op latency p50/p99 of client writes, reads
-and degraded reads, scrub GB/s, recovery seconds, the mean op spans per
-write from the primaries' op trackers, and stripes per dispatch.
+Phase 10 drives the front doors on a fresh cluster of phase 9's shape
+(3 mons, 13 MemStore OSDs, one marked out): an EC
+base pool "doors" (phase 9's code with host_cutover 1, the 4 KiB unit,
+pg_num 32) behind a replicated writeback cache tier "doors-hot" (a hit
+set, target_max_objects 8), a replicated CephFS metadata pool, one MDS
+and one RGW gateway.  At upstream's 4 MiB object size, 8 S3 clients PUT
+16 x 8 MiB over HTTP with SigV4, 2 RBD clients write their own 32 MiB
+image in 4 MiB writes with the ObjectCacher on, and 2 CephFS clients
+write two 16 MiB files each: 256 MiB as 64 RADOS objects.  Four counted
+windows:
+
+  flush: from the first write until every data object sits in the base
+     (each flush one 128-stripe encode) and the tier is at its target
+     (under torch.profiler: the card's busy share); 16 objects' shard
+     files and HashInfo against the host oracle;
+  promote: the tier evicted and the cache cleared, everything read back
+     through its own door (S3 GET with the ETag the body's MD5, RBD
+     read, CephFS read) from the base, then stat sizes through each;
+  scrub: deep scrub of every PG of the base, cache cleared, zero
+     inconsistencies;
+  degraded promote: an OSD holding shards of the base, drawn from the
+     seed, killed; the tier evicted again and everything read again
+     through the doors, at least one rebuild decode among them.
+
+In each window of phases 9 and 10 every kernel entry point launched
+exactly once per device dispatch of its kind (pipeline.stats()
+dev_dispatches_enc/_dec/_crc), at least one device dispatch ran (except
+in phase 10's promote window: a read of an intact object may dispatch
+nothing) and the host served no stripe batch; no codec degraded (checked
+after each window of phase 10 and at the end of phase 9).  It
+prints GB/s and op latency p50/p99 of client writes, reads and degraded
+reads per door, scrub GB/s, recovery and flush seconds, the mean op
+spans per write from the primaries' op trackers, and stripes per
+dispatch.
 
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The line before the last lists the kernels; the last line is
@@ -81,6 +109,7 @@ prints no result.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -829,10 +858,11 @@ def percentiles_ms(lat) -> dict:
 
 
 def cluster_window(cuda_ec, ec_pipeline, tally, before: dict,
-                   what: str) -> dict:
+                   what: str, need_dispatch: bool = True) -> dict:
     """Close a counted window of the cluster phase: each kernel entry
     point launched exactly once per device dispatch of its kind, at
-    least one device dispatch, and no stripe batch served by the host."""
+    least one device dispatch (unless `need_dispatch` is False), and no
+    stripe batch served by the host."""
     torch.cuda.synchronize()
     after = ec_pipeline.stats()
     d = {k: after[k] - before[k] for k in (
@@ -845,9 +875,9 @@ def cluster_window(cuda_ec, ec_pipeline, tally, before: dict,
         "crc32c_segments": d["dev_dispatches_crc"],
         "crc32c_chain": d["dev_dispatches_enc"] + d["dev_dispatches_crc"]},
         what)
-    if d["host_dispatches"] or not d["dev_dispatches"]:
+    if d["host_dispatches"] or (need_dispatch and not d["dev_dispatches"]):
         raise AssertionError(f"{what} left the card: {d}")
-    d["stripes_per_dispatch"] = d["stripes"] / d["dispatches"]
+    d["stripes_per_dispatch"] = d["stripes"] / max(1, d["dispatches"])
     return d
 
 
@@ -1233,10 +1263,7 @@ def phase_cluster(rng, cuda_ec, ec_pipeline, hbm_cache, native, crc_mod,
                        g_lat), victim=victim, recovery_s=recovery_s,
                    rebuilt_shards_checked=len(lost),
                    recovery_window=d_rec,
-                   codecs_degraded=sum(
-                       bool(getattr(c, "degraded", False))
-                       for o in cluster.osds.values()
-                       for c in o._ec_codecs.values()),
+                   codecs_degraded=degraded_codecs(cluster),
                    routing=codec_routing(cluster),
                    elapsed_s=time.perf_counter() - t_start)
         emit("cluster_recovery", **step)
@@ -1247,6 +1274,486 @@ def phase_cluster(rng, cuda_ec, ec_pipeline, hbm_cache, native, crc_mod,
     finally:
         cluster.stop()
         ec_pipeline.get().stop()
+
+
+# Phase 10: the front doors (S3, RBD, CephFS) over a writeback cache
+# tier in front of a k=8 m=3 EC base.  The doors' objects are upstream's
+# default 4 MiB (ceph_file_layout, RBD order 22, the RGW stripe), so each
+# flush to the base is one 128-stripe encode, phase 9's batch shape.
+# Cut: one base pool shared by the three doors.
+DOORS_POOL, DOORS_HOT, DOORS_META = "doors", "doors-hot", "cephfs_metadata"
+DOORS_PG_NUM, DOORS_META_PG_NUM = 32, 16
+# phase 9's code with host_cutover 1: the doors' metadata objects (bucket
+# index, rbd_header, ...) hold no data and flush as one 32 KiB stripe,
+# under 64 KiB; at phase 9's cutover the host would encode them
+DOORS_PROFILE_NAME = "k8m3-doors"
+DOORS_PROFILE = {**CLUSTER_PROFILE, "host_cutover": "1"}
+# target / pg_num < 1 object per tier PG: every full agent scan evicts
+# whatever it finds clean, so the agent evicts all it flushes
+DOORS_TARGET_MAX_OBJECTS = 8
+DOORS_HIT_SET = {"hit_set_count": "2", "hit_set_period": "10.0"}
+DOORS_OBJECT_BYTES = 4 << 20
+DOORS_ACCESS, DOORS_SECRET = "AKIACHIPSMOKE", "chip-smoke-secret"
+DOORS_BUCKET = "doors"
+S3_CLIENTS, S3_OBJECTS, S3_OBJECT_BYTES = 8, 16, 8 << 20
+RBD_CLIENTS, RBD_IMAGE_BYTES, RBD_ORDER = 2, 32 << 20, 22
+FS_CLIENTS, FS_FILES, FS_FILE_BYTES = 2, 2, 16 << 20
+DOORS_SAMPLE = 16
+DOORS_TIMEOUT = 300.0
+
+
+def s3_request(port: int, method: str, path: str, data: bytes = b""):
+    """One SigV4-signed S3 request to the gateway: (headers, body)."""
+    import urllib.error
+    import urllib.request
+    from ceph_tpu_torch.rgw import auth_v4
+    host = f"127.0.0.1:{port}"
+    headers = auth_v4.sign_v4(method, path, "", {"host": host}, data,
+                              DOORS_ACCESS, DOORS_SECRET)
+    headers["Host"] = host
+    req = urllib.request.Request(f"http://{host}{path}", data=data or None,
+                                 method=method, headers=headers)
+    try:
+        with urllib.request.urlopen(req, timeout=CLUSTER_TIMEOUT) as resp:
+            return resp.headers, resp.read()
+    except urllib.error.HTTPError as e:
+        raise AssertionError(f"S3 {method} {path}: {e.code} "
+                             f"{e.read()[:300]!r}") from e
+
+
+def etag_of(headers) -> str:
+    return headers["ETag"].strip('"')
+
+
+def tier_names(cluster, pool_id: int) -> set:
+    """Object names in a replicated pool, from its PG primaries."""
+    names = set()
+    for osd in cluster.osds.values():
+        for pgid, pg in list(osd.pgs.items()):
+            if pgid.pool != pool_id or not pg.is_primary:
+                continue
+            names |= {n for n in osd.store.collection_list(f"pg_{pgid}")
+                      if not n.startswith("_pgmeta") and "@" not in n}
+    return names
+
+
+def in_base(cluster, base_id: int, oids) -> set:
+    """The oids whose k+m shard files all sit on their acting set."""
+    osdmap = cluster.leader().osdmon.osdmap
+    listed = {}
+    out = set()
+    for oid in oids:
+        pgid = osdmap.object_to_pg(base_id, oid)
+        acting = osdmap.pg_to_up_acting_osds(pgid)[1]
+        ok = True
+        for shard, holder in enumerate(acting):
+            osd = cluster.osds.get(holder)
+            if osd is None or not osd.osdmap.is_up(holder):
+                continue          # a down holder's shard stays where it was
+            key = (holder, pgid)
+            if key not in listed:
+                listed[key] = set(osd.store.collection_list(f"pg_{pgid}"))
+            ok = ok and f"{oid}.s{shard}" in listed[key]
+        if ok:
+            out.add(oid)
+    return out
+
+
+def wait_ticking(cluster, pred, timeout: float, what: str) -> float:
+    """Poll `pred` while the cluster's clock runs ahead of real time (the
+    tier agent works on heartbeat ticks); returns the seconds waited."""
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > timeout:
+            raise TimeoutError(what)
+        cluster.tick(0.25)
+        time.sleep(0.1)
+    return time.perf_counter() - t0
+
+
+def mon_command_ok(cluster, admin, cmd: dict) -> None:
+    """A mon command that must succeed; retried while the mons answer
+    ETIMEDOUT or EAGAIN (a paxos round still busy with the new pools)."""
+    end = time.monotonic() + CLUSTER_TIMEOUT
+    while True:
+        rv, msg, _ = admin.mon_command(cmd)
+        if rv == 0:
+            return
+        if rv not in (-110, -11) or time.monotonic() > end:
+            raise AssertionError(f"{cmd}: {rv} {msg}")
+        cluster.tick(0.25)
+
+
+def doors_warm(cluster, pool_id, ec_pipeline, device) -> float:
+    """Every OSD's doors codec warm at every batch bucket up to
+    max_batch (a flush of a one-stripe metadata object may coalesce
+    with others or with a data object's 128 stripes), and the scrub CRC
+    channel at the data and the metadata shard sizes."""
+    max_batch = int(cluster.conf.osd_ec_pipeline_max_batch)
+    buckets = [1 << j for j in range(max_batch.bit_length())]
+    t0 = time.monotonic()
+    for osd in cluster.osds.values():
+        warm_codec(osd.get_ec_codec(osd.osdmap.pools[pool_id]), buckets,
+                   buckets[0], device)
+    batch = int(cluster.conf.osd_deep_scrub_stripe_batch)
+    S = DOORS_OBJECT_BYTES // (K * CLUSTER_UNIT)
+    for size in (CLUSTER_UNIT, S * CLUSTER_UNIT):
+        for j in range(batch.bit_length()):
+            wait_warm(lambda: ec_pipeline.crc_fn_if_ready(
+                size, (1 << j, size), device), f"scrub CRC of {size} B")
+    return time.monotonic() - t0
+
+
+def degraded_codecs(cluster) -> int:
+    return sum(bool(getattr(c, "degraded", False))
+               for o in cluster.osds.values() for c in o._ec_codecs.values())
+
+
+def door_rate(nbytes: int, wall: float, lat) -> dict:
+    return {"gbs": nbytes / wall / 1e9, "wall_s": wall,
+            "ops": len(lat), "lat_ms": percentiles_ms(lat)}
+
+
+class Doors:
+    """The three doors' clients and the payload each was given."""
+
+    def __init__(self, cluster, rng, gw):
+        from ceph_tpu_torch.client.striper import object_name
+        from ceph_tpu_torch.fs import CephFS
+        from ceph_tpu_torch.rbd import RBD, data_oid
+        from ceph_tpu_torch.rgw import obj_soid
+        self.gw = gw
+        self.s3 = [rng.integers(0, 256, S3_OBJECT_BYTES, dtype=np.uint8)
+                   .tobytes() for _ in range(S3_OBJECTS)]
+        self.images = [rng.integers(0, 256, RBD_IMAGE_BYTES, dtype=np.uint8)
+                       .tobytes() for _ in range(RBD_CLIENTS)]
+        self.files = [rng.integers(0, 256, FS_FILE_BYTES, dtype=np.uint8)
+                      .tobytes() for _ in range(FS_CLIENTS * FS_FILES)]
+        self.rbd_ios = [cluster.client(f"client.rbd{t}").open_ioctx(
+            DOORS_POOL) for t in range(RBD_CLIENTS)]
+        for t, io in enumerate(self.rbd_ios):
+            RBD(io).create(f"image{t}", RBD_IMAGE_BYTES, order=RBD_ORDER)
+        self.fss = []
+        for t in range(FS_CLIENTS):
+            fs = CephFS(cluster.client(f"client.fs{t}"),
+                        data_pool=DOORS_POOL, metadata_pool=DOORS_META)
+            wait_ticking(cluster, lambda: self._mounted(fs), 120.0,
+                         "CephFS mount")
+            self.fss.append(fs)
+        s3_request(gw.port, "PUT", f"/{DOORS_BUCKET}")
+        self.objects = {}         # RADOS data object -> its payload
+        for i, body in enumerate(self.s3):
+            self._add_objects(lambda n: object_name(
+                obj_soid(DOORS_BUCKET, f"obj{i}"), n), body)
+        for t, body in enumerate(self.images):
+            self._add_objects(lambda n: data_oid(f"image{t}", n), body)
+
+    def _add_objects(self, name_of, body: bytes) -> None:
+        """The 4 MiB RADOS objects a door stripes `body` into."""
+        O = DOORS_OBJECT_BYTES
+        for n in range(len(body) // O):
+            self.objects[name_of(n)] = body[n * O:(n + 1) * O]
+
+    @staticmethod
+    def _mounted(fs) -> bool:
+        from ceph_tpu_torch.fs import FsError
+        try:
+            fs.mount(timeout=10.0)
+            return True
+        except FsError:
+            return False
+
+    def write(self) -> dict:
+        """Every door writes its payload; per-door rates."""
+        from ceph_tpu_torch.fs import data_oid
+        from ceph_tpu_torch.rbd import Image
+
+        def put(_c, i):
+            headers, _ = s3_request(self.gw.port, "PUT",
+                                    f"/{DOORS_BUCKET}/obj{i}", self.s3[i])
+            if etag_of(headers) != hashlib.md5(self.s3[i]).hexdigest():
+                raise AssertionError(f"S3 PUT obj{i}: ETag != MD5")
+
+        wall, lat, _ = run_clients([None] * S3_CLIENTS, put, S3_OBJECTS)
+        out = {"s3": door_rate(S3_OBJECTS * S3_OBJECT_BYTES, wall, lat)}
+
+        t0 = time.perf_counter()
+        imgs = [Image(io, f"image{t}", cache=True)
+                for t, io in enumerate(self.rbd_ios)]
+        per = RBD_IMAGE_BYTES // DOORS_OBJECT_BYTES
+
+        def rbd_write(img, i):
+            t, n = i % RBD_CLIENTS, i // RBD_CLIENTS
+            O = DOORS_OBJECT_BYTES
+            img.write(n * O, self.images[t][n * O:(n + 1) * O])
+
+        _w, lat, _ = run_clients(imgs, rbd_write, RBD_CLIENTS * per)
+        for img in imgs:
+            img.close()           # flushes the ObjectCacher
+        out["rbd"] = door_rate(RBD_CLIENTS * RBD_IMAGE_BYTES,
+                               time.perf_counter() - t0, lat)
+
+        def fs_write(fs, i):
+            f = fs.open(f"/file{i}", "w")
+            f.write(self.files[i])
+            f.close()
+            return f.ino
+
+        wall, lat, inos = run_clients(self.fss, fs_write, len(self.files))
+        for i, ino in enumerate(inos):
+            self._add_objects(lambda n: data_oid(ino, n), self.files[i])
+        out["cephfs"] = door_rate(len(self.files) * FS_FILE_BYTES, wall, lat)
+        return out
+
+    def read(self, what: str) -> dict:
+        """Every door reads its payload back; each byte must match."""
+        from ceph_tpu_torch.rbd import Image
+
+        def get(_c, i):
+            headers, body = s3_request(self.gw.port, "GET",
+                                       f"/{DOORS_BUCKET}/obj{i}")
+            if body != self.s3[i] or \
+                    etag_of(headers) != hashlib.md5(body).hexdigest():
+                raise AssertionError(f"{what}: S3 GET obj{i} != PUT")
+
+        wall, lat, _ = run_clients([None] * S3_CLIENTS, get, S3_OBJECTS)
+        out = {"s3": door_rate(S3_OBJECTS * S3_OBJECT_BYTES, wall, lat)}
+
+        t0 = time.perf_counter()
+        imgs = [Image(io, f"image{t}", cache=True)
+                for t, io in enumerate(self.rbd_ios)]
+        per = RBD_IMAGE_BYTES // DOORS_OBJECT_BYTES
+
+        def rbd_read(img, i):
+            t, n = i % RBD_CLIENTS, i // RBD_CLIENTS
+            O = DOORS_OBJECT_BYTES
+            if bytes(img.read(n * O, O)) != \
+                    self.images[t][n * O:(n + 1) * O]:
+                raise AssertionError(f"{what}: image{t} object {n} != "
+                                     f"written")
+
+        _w, lat, _ = run_clients(imgs, rbd_read, RBD_CLIENTS * per)
+        for img in imgs:
+            img.close()
+        out["rbd"] = door_rate(RBD_CLIENTS * RBD_IMAGE_BYTES,
+                               time.perf_counter() - t0, lat)
+
+        def fs_read(fs, i):
+            f = fs.open(f"/file{i}", "r")
+            got = f.read()
+            f.close()
+            if got != self.files[i]:
+                raise AssertionError(f"{what}: {f"/file{i}"} != written")
+
+        wall, lat, _ = run_clients(self.fss, fs_read, len(self.files))
+        out["cephfs"] = door_rate(len(self.files) * FS_FILE_BYTES, wall, lat)
+        walls = sum(v["wall_s"] for v in out.values())
+        out["gbs"] = self.nbytes() / walls / 1e9
+        return out
+
+    def nbytes(self) -> int:
+        return S3_OBJECTS * S3_OBJECT_BYTES + \
+            RBD_CLIENTS * RBD_IMAGE_BYTES + len(self.files) * FS_FILE_BYTES
+
+    def check_sizes(self) -> None:
+        """stat through each door: S3 HEAD, RBD image size, CephFS."""
+        from ceph_tpu_torch.rbd import Image
+        for i in range(S3_OBJECTS):
+            headers, _ = s3_request(self.gw.port, "HEAD",
+                                    f"/{DOORS_BUCKET}/obj{i}")
+            if int(headers["Content-Length"]) != S3_OBJECT_BYTES:
+                raise AssertionError(f"HEAD obj{i}: {headers}")
+        for t, io in enumerate(self.rbd_ios):
+            with Image(io, f"image{t}") as img:
+                if img.stat()["size"] != RBD_IMAGE_BYTES:
+                    raise AssertionError(f"image{t}: {img.stat()}")
+        for i in range(len(self.files)):
+            size = self.fss[i % FS_CLIENTS].stat(f"/file{i}")["size"]
+            if size != FS_FILE_BYTES:
+                raise AssertionError(f"{f"/file{i}"}: size {size}")
+
+
+def phase_doors(rng, cuda_ec, ec_pipeline, hbm_cache, native, crc_mod,
+                device, tally):
+    from ceph_tpu_torch.vstart import MiniCluster
+    # phase 9's own cluster is not reused: after its windows the leader
+    # mon took new client connections and commands late (80-100 s of
+    # command timeouts and MDS monc hunting on the H100), so phase 10
+    # boots one of the same shape, one of its 13 OSDs out
+    cluster = MiniCluster(num_mons=CLUSTER_MONS, num_osds=CLUSTER_OSDS,
+                          conf=cluster_conf())
+    try:
+        return doors_windows(cluster, rng, cuda_ec, ec_pipeline, hbm_cache,
+                             native, crc_mod, device, tally)
+    finally:
+        cluster.stop()
+        ec_pipeline.get().stop()
+
+
+def doors_windows(cluster, rng, cuda_ec, ec_pipeline, hbm_cache, native,
+                  crc_mod, device, tally):
+    from ceph_tpu_torch.osd.pglog import HINFO_KEY
+    from ceph_tpu_torch.utils import denc
+
+    t_start = time.perf_counter()
+    setup = {}                   # seconds of each setup step
+    cluster.start(timeout=120.0)
+    admin = cluster.client()
+    out_osd = int(rng.integers(CLUSTER_OSDS))
+    cluster.mark_osd_out(out_osd)
+    setup["boot_s"] = time.perf_counter() - t_start
+    if DOORS_TARGET_MAX_OBJECTS >= DOORS_PG_NUM:
+        raise ValueError("the agent would keep an object in each tier PG")
+    admin.create_ec_pool(DOORS_POOL, DOORS_PROFILE_NAME, DOORS_PROFILE,
+                         pg_num=DOORS_PG_NUM)
+    admin.create_pool(DOORS_HOT, pg_num=DOORS_PG_NUM)
+    admin.create_pool(DOORS_META, pg_num=DOORS_META_PG_NUM)
+    base_id = admin.open_ioctx(DOORS_POOL).pool_id
+    hot_id = admin.open_ioctx(DOORS_HOT).pool_id
+    cluster.wait_for_clean(CLUSTER_TIMEOUT)
+    setup["pools_s"] = time.perf_counter() - t_start - sum(setup.values())
+    settings = {"target_max_objects": str(DOORS_TARGET_MAX_OBJECTS),
+                **DOORS_HIT_SET}
+    for cmd in [{"prefix": "osd tier add", "pool": DOORS_POOL,
+                 "tierpool": DOORS_HOT},
+                {"prefix": "osd tier cache-mode", "pool": DOORS_HOT,
+                 "mode": "writeback"},
+                {"prefix": "osd tier set-overlay", "pool": DOORS_POOL,
+                 "overlaypool": DOORS_HOT}] + [
+                {"prefix": "osd pool set", "pool": DOORS_HOT, "var": k,
+                 "val": v} for k, v in settings.items()]:
+        mon_command_ok(cluster, admin, cmd)
+    setup["tier_s"] = time.perf_counter() - t_start - sum(setup.values())
+    cluster.start_mds("a", metadata_pool=DOORS_META, data_pool=DOORS_POOL)
+    gw = cluster.start_rgw(access_key=DOORS_ACCESS, secret_key=DOORS_SECRET,
+                           data_pool=DOORS_POOL)
+    setup["daemons_s"] = time.perf_counter() - t_start - sum(setup.values())
+    warm_s = doors_warm(cluster, base_id, ec_pipeline, device)
+    coding = cluster.osds[0].get_ec_codec(
+        cluster.osds[0].osdmap.pools[base_id]).coding_matrix
+    t0 = time.perf_counter()
+    doors = Doors(cluster, rng, gw)
+    setup["clients_s"] = time.perf_counter() - t0
+    emit("doors_setup", mons=CLUSTER_MONS, osds=CLUSTER_OSDS,
+         out_osd=out_osd, base=DOORS_POOL, tier=DOORS_HOT,
+         pg_num=DOORS_PG_NUM, tier_settings=settings,
+         s3=[S3_CLIENTS, S3_OBJECTS, S3_OBJECT_BYTES],
+         rbd=[RBD_CLIENTS, RBD_IMAGE_BYTES, RBD_ORDER],
+         cephfs=[FS_CLIENTS, FS_FILES, FS_FILE_BYTES],
+         setup=setup, warm_s=warm_s,
+         elapsed_s=time.perf_counter() - t_start)
+
+    def tier_data():
+        return tier_names(cluster, hot_id) & set(doors.objects)
+
+    def evicted():
+        return not tier_data()
+
+    def codecs_stay():
+        if degraded_codecs(cluster):
+            raise AssertionError("an OSD's codec degraded to the host")
+
+    # -- window 1: flush -----------------------------------------------
+    torch.cuda.synchronize()
+    cuda_ec.reset_launches()
+    before = ec_pipeline.stats()
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    t0 = time.perf_counter()
+    with prof:
+        writes = doors.write()
+        settle_s = wait_ticking(
+            cluster, lambda: in_base(cluster, base_id, doors.objects)
+            == set(doors.objects) and len(tier_names(
+                cluster, hot_id)) <= DOORS_TARGET_MAX_OBJECTS,
+            DOORS_TIMEOUT, "tier flush and evict")
+    flush_s = time.perf_counter() - t0
+    d_flush = cluster_window(cuda_ec, ec_pipeline, tally, before,
+                             "doors flush")
+    codecs_stay()
+    try:
+        busy, n_events = device_busy_share(prof, flush_s)
+    except (AttributeError, TypeError, ValueError) as e:
+        busy, n_events = None, f"not measured: {e!r}"
+    sample = sorted(doors.objects)[::len(doors.objects) // DOORS_SAMPLE]
+    for oid in sample[:DOORS_SAMPLE]:
+        check_shards(cluster, base_id, oid, doors.objects[oid], coding,
+                     native, crc_mod, denc, HINFO_KEY)
+    step = dict(write=writes, flush_s=flush_s, settle_s=settle_s,
+                data_objects=len(doors.objects),
+                device_busy_share=busy, profiler_device_events=n_events,
+                flush_window=d_flush, shards_checked_objects=DOORS_SAMPLE,
+                elapsed_s=time.perf_counter() - t_start)
+    emit("doors_flush", **step)
+    out = {"flush": step}
+
+    # -- window 2: promote ---------------------------------------------
+    evict_s = wait_ticking(cluster, evicted, DOORS_TIMEOUT, "tier evict")
+    hbm_cache.get().clear()
+    torch.cuda.synchronize()
+    cuda_ec.reset_launches()
+    before = ec_pipeline.stats()
+    reads = doors.read("promote")
+    d_prom = cluster_window(cuda_ec, ec_pipeline, tally, before,
+                            "doors promote", need_dispatch=False)
+    codecs_stay()
+    doors.check_sizes()
+    step = dict(read=reads, promote_gbs=reads["gbs"], evict_s=evict_s,
+                promote_window=d_prom,
+                elapsed_s=time.perf_counter() - t_start)
+    emit("doors_promote", **step)
+    out["promote"] = step
+
+    # -- window 3: deep scrub of the base ------------------------------
+    hbm_cache.get().clear()
+    torch.cuda.synchronize()
+    cuda_ec.reset_launches()
+    before = ec_pipeline.stats()
+    t0 = time.perf_counter()
+    results = scrub_all(cluster, base_id)
+    s_wall = time.perf_counter() - t0
+    bad = [(str(p), r["inconsistent"]) for p, r in results.items()
+           if r["inconsistent"]]
+    if bad:
+        raise AssertionError(f"doors scrub found inconsistencies: {bad}")
+    d_scrub = cluster_window(cuda_ec, ec_pipeline, tally, before,
+                             "doors deep scrub")
+    codecs_stay()
+    shard_bytes = len(doors.objects) * DOORS_OBJECT_BYTES * (K + M) // K
+    step = dict(scrub_gbs=shard_bytes / s_wall / 1e9, scrub_s=s_wall,
+                scrub_checked=sum(r["checked"] for r in results.values()),
+                scrub_window=d_scrub,
+                elapsed_s=time.perf_counter() - t_start)
+    emit("doors_scrub", **step)
+    out["scrub"] = step
+
+    # -- window 4: degraded promote ------------------------------------
+    osdmap = cluster.leader().osdmon.osdmap
+    holders = sorted({o for p in osdmap.all_pgs() if p.pool == base_id
+                      for o in osdmap.pg_to_up_acting_osds(p)[1]
+                      if o >= 0 and osdmap.is_up(o)})
+    victim = holders[int(rng.integers(len(holders)))]
+    cluster.kill_osd(victim)
+    cluster.mark_osd_down(victim)
+    cluster.wait_for_osd_down(victim, 60.0)
+    evict_s = wait_ticking(cluster, evicted, DOORS_TIMEOUT, "tier evict")
+    hbm_cache.get().clear()
+    torch.cuda.synchronize()
+    cuda_ec.reset_launches()
+    before = ec_pipeline.stats()
+    reads = doors.read("degraded promote")
+    d_deg = cluster_window(cuda_ec, ec_pipeline, tally, before,
+                           "doors degraded promote")
+    if not d_deg["dev_dispatches_dec"]:
+        raise AssertionError(f"degraded promote ran no decode: {d_deg}")
+    codecs_stay()
+    step = dict(read=reads, degraded_promote_gbs=reads["gbs"],
+                victim=victim, evict_s=evict_s, degraded_window=d_deg,
+                routing=codec_routing(cluster),
+                elapsed_s=time.perf_counter() - t_start)
+    emit("doors_degraded_promote", **step)
+    out["degraded"] = step
+    return out
 
 
 # the kernels of the main path: writes (fused pass), rebuilds, and the
@@ -1316,6 +1823,8 @@ def main() -> int:
     payloads = written = None
     phase_cluster(rng, cuda_ec, ec_pipeline, hbm_cache, native, crc_mod,
                   device, counts)
+    phase_doors(rng, cuda_ec, ec_pipeline, hbm_cache, native, crc_mod,
+                device, counts)
     by_source = {src: sum(n for name, n in counts.items()
                           if name.startswith(src)) for src in cuda_ec.SOURCES}
     emit("main_path_launches", launches=counts, by_source=by_source)

@@ -14,6 +14,12 @@ ceph_tpu and repaired, and fails at the carried-over behaviour:
   that pg is busy;
 - a device failure in a read's decode fails the read with EIO, never
   reads as a missing object;
+- an EC read of an object whose write has its shards applied on some
+  holders and not yet on others waits for the write, and never decodes
+  the two generations into one payload;
+- an EC object's omap sits on every shard, and its xattrs and omap read
+  from a shard file the primary holds under another role (a member
+  going down moves the roles) instead of failing or reading empty;
 - the EC shard-role audit after a mark-out repeats until every member
   holds every object, through a shard scan that timed out and a rebuild
   push that was lost; the cluster is not clean before that.
@@ -234,6 +240,84 @@ def test_decode_device_error_fails_the_read_with_eio(cluster, io,
     assert ei.value.errno == 5 and calls
     monkeypatch.undo()
     assert io.read("dobj") == payload
+
+
+def test_read_behind_a_gathering_write_waits_for_it(cluster, io,
+                                                    monkeypatch):
+    """The primary has applied its shard of a new write while the
+    sub-writes to the other holders are held back.  A read of the object
+    then must not gather the primary's new shard beside the old ones:
+    it waits, and once the sub-writes go out it returns the new bytes."""
+    v1, v2 = _payload(5, 2 * K * UNIT), _payload(6, 2 * K * UNIT)
+    io.write_full("gobj", v1)
+    pgid, acting = _acting(cluster, io.pool_id, "gobj")
+    primary = cluster.osds[acting[0]]
+    pg = primary.get_pg(pgid)
+    held = []
+    real_send = OSDDaemon.send_osd
+
+    def hold(self, osd_id, msg):
+        if self is primary and getattr(msg, "pgid", None) == str(pgid) \
+                and type(msg).__name__ == "MOSDECSubOpWrite":
+            held.append((osd_id, msg))
+            return
+        return real_send(self, osd_id, msg)
+
+    cap = hbm_cache.get().capacity
+    hbm_cache.configure(0)          # every read gathers shards
+    monkeypatch.setattr(OSDDaemon, "send_osd", hold)
+    head = pg.pglog.objects["gobj"]
+    writer = threading.Thread(target=io.write_full, args=("gobj", v2))
+    out = []
+    reader = threading.Thread(target=lambda: out.append(io.read("gobj")))
+    try:
+        writer.start()
+        end = time.time() + 20
+        while pg.pglog.objects.get("gobj") == head or len(held) < K:
+            assert time.time() < end, "the write never reached its gather"
+            time.sleep(0.02)
+        reader.start()
+        reader.join(timeout=2.0)
+        assert out in ([], [v2]), "the read decoded two generations"
+        assert out == [], "the read did not wait for the write"
+    finally:
+        monkeypatch.undo()
+        for osd_id, msg in held:
+            primary.send_osd(osd_id, msg)
+        writer.join(timeout=60)
+        reader.join(timeout=60)
+        hbm_cache.configure(cap)
+    assert out == [v2]
+    assert io.read("gobj") == v2
+
+
+def test_xattrs_and_omap_read_from_a_shard_under_another_role(cluster, io):
+    """Every shard holder keeps the object's omap.  The primary's shard
+    file is then moved to another role's name, as when a member going
+    down shifts the roles before the audit moves the files: the xattr
+    and the omap still read back through librados, and the data
+    decodes from the peers."""
+    payload = _payload(7, 2 * K * UNIT + 99)
+    io.write_full("xobj", payload)
+    io.set_xattr("xobj", "tag", b"xattr value")
+    io.set_omap("xobj", {"key": b"omap value"})
+    pgid, acting = _acting(cluster, io.pool_id, "xobj")
+    cid = f"pg_{pgid}"
+    for shard, holder in enumerate(acting):
+        assert cluster.osds[holder].store.omap_get(
+            cid, f"xobj.s{shard}") == {"key": b"omap value"}, shard
+    store = cluster.osds[acting[0]].store
+    other = f"xobj.s{K + M - 1}"
+    store.apply_transaction(Transaction().clone(cid, "xobj.s0", other)
+                            .remove(cid, "xobj.s0"))
+    hbm_cache.get().clear()
+    try:
+        assert io.get_xattr("xobj", "tag") == b"xattr value"
+        assert io.get_omap("xobj") == {"key": b"omap value"}
+        assert io.read("xobj") == payload
+    finally:
+        store.apply_transaction(Transaction().clone(cid, other, "xobj.s0")
+                                .remove(cid, other))
 
 
 def test_role_audit_repeats_until_every_shard_lands(cluster, io,

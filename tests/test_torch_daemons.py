@@ -4,7 +4,9 @@ ceph_tpu_torch.daemons``), run as processes on the CPU.
 An OSD started from the command line runs on the package device, cuda:
 with no card it exits with the pipeline's error.  A caller that sets the
 CPU device before ``main()`` boots an OSD that joins a monitor started
-from the same command line.
+from the same command line.  The mds and rgw roles parse their command
+lines and, started as processes against a CPU cluster, serve a CephFS
+mount and SigV4-signed S3 requests.
 """
 
 import os
@@ -17,8 +19,9 @@ import time
 import pytest
 import torch
 
+import ceph_tpu_torch
 from ceph_tpu_torch.client import Rados
-from ceph_tpu_torch.daemons import load_conf, monmap_from_conf
+from ceph_tpu_torch.daemons import load_conf, main, monmap_from_conf
 from ceph_tpu_torch.osd.osdmap import OSDMap
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -112,4 +115,85 @@ def test_command_line_mon_and_a_cpu_osd_boot(tmp_path):
         if rados is not None:
             rados.shutdown()
         codes = [_stop(p) for p in (osd, mon) if p is not None]
+    assert codes == [0, 0]
+
+
+@pytest.mark.parametrize("argv, code, needle", [
+    (["mds", "--help"], 0, "--name"),
+    (["rgw", "--help"], 0, "--secret-key"),
+    (["mds"], 2, "--name"),
+    (["rgw", "--port", "x"], 2, "--port"),
+])
+def test_mds_and_rgw_command_lines(argv, code, needle, capsys):
+    with pytest.raises(SystemExit) as ei:
+        main(argv)
+    assert ei.value.code == code
+    out = capsys.readouterr()
+    assert needle in out.out + out.err
+
+
+def _cluster_conf(tmp_path, cluster) -> str:
+    hosts = ",".join(f"{h}:{p}" for h, p in (
+        cluster.monmap.addr_of(n) for n in cluster.monmap.ranks()))
+    path = tmp_path / "ceph.conf"
+    path.write_text(f"[global]\nfsid = {cluster.monmap.fsid}\n"
+                    f"mon host = {hosts}\n")
+    return str(path)
+
+
+def test_command_line_mds_and_rgw_serve_a_cpu_cluster(tmp_path):
+    import urllib.request
+    from ceph_tpu_torch.fs import CephFS
+    from ceph_tpu_torch.ops import hbm_cache
+    from ceph_tpu_torch.ops import pipeline as ec_pipeline
+    from ceph_tpu_torch.rgw import auth_v4
+    from ceph_tpu_torch.vstart import MiniCluster
+    prev = ceph_tpu_torch.set_device("cpu")
+    cluster = MiniCluster(num_mons=1, num_osds=3).start()
+    procs = []
+    try:
+        conf = _cluster_conf(tmp_path, cluster)
+        mds = _spawn(["-c", CPU_MAIN, "mds", "--name", "a", "-c", conf])
+        procs.append(mds)
+        _wait_line(mds, "mds.a up at", 60)
+        port = _free_port()
+        rgw = _spawn(["-c", CPU_MAIN, "rgw", "--port", str(port),
+                      "--access-key", "AKIACLI", "--secret-key", "cli",
+                      "-c", conf])
+        procs.append(rgw)
+        _wait_line(rgw, f"rgw up at http://127.0.0.1:{port}", 60)
+
+        def s3(method, path, data=b""):
+            host = f"127.0.0.1:{port}"
+            headers = auth_v4.sign_v4(method, path, "", {"host": host},
+                                      data, "AKIACLI", "cli")
+            headers["Host"] = host
+            req = urllib.request.Request(f"http://{host}{path}",
+                                         data=data or None, method=method,
+                                         headers=headers)
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                return resp.read()
+
+        s3("PUT", "/cli")
+        s3("PUT", "/cli/obj", b"through the rgw role")
+        assert s3("GET", "/cli/obj") == b"through the rgw role"
+        fs = CephFS(cluster.client("client.cli_fs"))
+        end = time.time() + 60
+        while True:
+            try:
+                fs.mount(timeout=10.0)
+                break
+            except Exception:
+                assert time.time() < end, "no CephFS mount"
+                cluster.tick(0.5)
+        f = fs.open("/cli", "w")
+        f.write(b"through the mds role")
+        f.close()
+        assert fs.open("/cli", "r").read() == b"through the mds role"
+    finally:
+        codes = [_stop(p) for p in reversed(procs)]
+        cluster.stop()
+        ec_pipeline.get().stop()
+        hbm_cache.get().clear()
+        ceph_tpu_torch.set_device(prev)
     assert codes == [0, 0]

@@ -43,7 +43,10 @@ def test_every_module_imports_without_jax_or_ceph_tpu():
     assert "ceph_tpu_torch.ops.cuda_ec" in mods
     assert "ceph_tpu_torch.erasure.plugin_tpu" in mods
     for name in ("ops.pipeline", "ops.hbm_cache", "utils.optracker",
-                 "utils.dmclock"):
+                 "utils.dmclock", "rgw", "rgw.auth_v4", "rgw.swift",
+                 "rgw.sync", "fs", "fs.mds", "fs.messages", "rbd",
+                 "rbd.mirror", "journal", "client.kv_btree",
+                 "client.object_cacher", "tools.loadgen"):
         assert f"ceph_tpu_torch.{name}" in mods
     code = (
         "import importlib, json, sys\n"
