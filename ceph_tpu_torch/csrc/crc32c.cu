@@ -181,3 +181,19 @@ extern "C" int ceph_crc32c_segments(const void* rows, long long N,
       static_cast<uint32_t*>(seg_crc), static_cast<const uint32_t*>(tables));
   return (int)cudaGetLastError();
 }
+
+// A strided copy of `height` runs of `width` bytes, the runs `spitch`
+// bytes apart at src and `dpitch` bytes apart at dst, in either direction
+// between host and device memory (cudaMemcpyDefault), on `stream`: how
+// the mesh functions move one member's chunk-length slice of a batch up
+// or its parity slice down without a host copy.  Asynchronous for pinned
+// host memory.  Returns the copy's cudaError_t.
+extern "C" int ceph_copy_2d(void* dst, long long dpitch, const void* src,
+                            long long spitch, long long width,
+                            long long height, void* stream) {
+  if (width == 0 || height == 0) return 0;  // nothing to copy
+  return (int)cudaMemcpy2DAsync(dst, (size_t)dpitch, src, (size_t)spitch,
+                                (size_t)width, (size_t)height,
+                                cudaMemcpyDefault,
+                                static_cast<cudaStream_t>(stream));
+}

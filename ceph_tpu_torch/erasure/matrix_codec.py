@@ -254,6 +254,12 @@ class TorchBackend:
                 (length,) = extra
                 fn = self._cuda.make_encode_crc_fn(matrix, length,
                                                    self.compute)
+            elif kind == "mesh":
+                # the fused encode + CRC with the chunk length split over
+                # a plane of devices: host batch in, host outputs out
+                length, devices, n_dp, n_ls = extra
+                fn = self._cuda.make_mesh_encode_crc_fn(
+                    matrix, length, devices, n_dp, n_ls, self.compute)
             elif kind == "bits":
                 w, packetsize = extra
                 fn = self._ek.make_bits_codec_fn(matrix, w, packetsize,
@@ -391,7 +397,12 @@ class TorchBackend:
         def warm():
             try:
                 fn = self._fn(kind, matrix, *extra)
-                fn(torch.zeros(shape, dtype=torch.uint8, device=device))
+                if kind == "mesh":
+                    # a host batch in; the run waits for its members
+                    fn(np.zeros(shape, dtype=np.uint8))
+                else:
+                    fn(torch.zeros(shape, dtype=torch.uint8,
+                                   device=device))
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
                 self._ready.add(rkey)
@@ -489,6 +500,20 @@ class TorchBackend:
                           device=None):
         return self.device_fn_if_ready("fused", matrix, (shape[-1],),
                                        shape, device)
+
+    def mesh_fn_if_ready(self, matrix: np.ndarray, shape: tuple,
+                         plane: tuple):
+        """The mesh encode + CRC runner (``cuda_ec``'s
+        make_mesh_encode_crc_fn) for (matrix, batch shape, plane) if it
+        is warm, else None after starting its warm-up — the contract of
+        fused_fn_if_ready, with readiness keyed by the plane, `plane`
+        being (devices, n_dp, n_ls) from the pipeline's mesh plane.  The
+        runner takes a host batch: run(batch, keep_resident=False) ->
+        (parity, crcs, resident)."""
+        devices, n_dp, n_ls = plane
+        return self.device_fn_if_ready(
+            "mesh", matrix, (shape[-1], tuple(devices), n_dp, n_ls),
+            shape, devices[0])
 
 
 # ---------------------------------------------------------------------------

@@ -263,11 +263,28 @@ class ErasureCodeTpu(MatrixErasureCode):
                 return None     # background warm-up; host serves
             return fn(padded)
 
+        def mesh_fn(batch, plane, donate=False, keep_resident=False):
+            # one mega-batch with its chunk length split over the
+            # plane's devices: host outputs equal to host_fn's, or None
+            # while the runner warms up (the batch then row-splits on
+            # the lanes, as a cold device_fn does).  A donated input is
+            # released after the kernels instead of kept resident.
+            b = self.backend
+            if self.degraded or not isinstance(b, TorchBackend):
+                return None
+            run = b.mesh_fn_if_ready(matrix, tuple(batch.shape),
+                                     plane.key())
+            if run is None:
+                return None
+            parity, crcs, resident = run(
+                batch, keep_resident=keep_resident and not donate)
+            return (parity, crcs), resident
+
         chan = ec_pipeline.PipelineChannel(
             key=("enc", id(self), L),
             host_fn=host_fn, device_fn=device_fn, route=self._route,
             on_error=self._on_device_error, record=self._record,
-            max_coalesce=self.batch_stripes)
+            max_coalesce=self.batch_stripes, mesh_fn=mesh_fn)
         with self._chan_lock:
             return self._channels.setdefault(("enc", L), chan)
 

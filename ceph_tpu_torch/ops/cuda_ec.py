@@ -15,7 +15,12 @@ Counterpart of ``ceph_tpu/ops/pallas_ec.py``:
     ``make_crc_fn`` run both, CRC32C (seed 0) per row;
   * ``make_encode_crc_fn`` is the fused pass: ``gf_encode_segment_crcs``
     then ``crc32c_chain`` into one (B, k+m) array, on one stream with no
-    host sync and no concatenation copy.
+    host sync and no concatenation copy;
+  * ``make_mesh_encode_crc_fn`` / ``make_mesh_crc_fn`` split one batch's
+    chunk length across a dp x ls plane of cards (the reference's
+    ``shard_map`` functions in ``ec_kernels``): each member runs the
+    kernels above on its slice on its own stream, and the partial CRCs
+    combine on the first member.
 
 They keep ``pallas_ec``'s call contract without its TPU limits (any L,
 no tile sizes).  Each wrapper checks device, dtype, shape and
@@ -33,6 +38,7 @@ path went through.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -61,7 +67,8 @@ _ARGTYPES = {
                                          _P, _P]},
     "crc32c": {"ceph_crc32c_segments": [_P, _I64, _I64, _P, _P, _P],
                "ceph_crc32c_chain": [_P, _I64, _I, _P, _I, _I, _I, _P,
-                                     _P]},
+                                     _P],
+               "ceph_copy_2d": [_P, _I64, _P, _I64, _I64, _I64, _P]},
 }
 
 # launches per kernel entry point: gf_encode.cu's plain and fused modes,
@@ -519,3 +526,279 @@ def make_encode_crc_fn(matrix: np.ndarray, L: int,
         return parity, crcs.view(data.shape[0], k + m)
 
     return batched(run)
+
+
+# ---------------------------------------------------------------------------
+# Mesh functions: one batch's chunk length across a dp x ls plane
+# ---------------------------------------------------------------------------
+
+
+class _MeshRoute:
+    """The plane the mesh functions run on (see ``ec_kernels`` for the
+    algebra): member m = i * n_ls + j holds stripes [i*Sd, (i+1)*Sd) and
+    padded columns [j*Lp, (j+1)*Lp), and works on a stream of its own.
+
+    On cards, a member's slice goes up as one strided copy straight from
+    the host batch (``ceph_copy_2d``: asynchronous from pinned memory,
+    such as a staging arena), and the front pad and tail stripes are
+    zeroed on the card, so no host copy pads the batch; its parity comes
+    down the same way into one pinned array.  The partial CRCs combine
+    on the first member: where Lp is a multiple of the 4 KiB CRC segment
+    the members' segment CRCs, in ls order, are the segments of the whole
+    padded row, and one ``crc32c_chain`` launch joins them; otherwise each
+    member chains its own slice and the first member advances the slice
+    CRCs over the bytes after them (a 32x32 GF(2) product in plain
+    PyTorch) and XORs them.  Members wait for each other only through
+    CUDA events.  CPU members take the same steps with plain copies and
+    without streams, which is how the tests hold this route's combine."""
+
+    def __init__(self, devices: tuple, n_dp: int, n_ls: int, L: int):
+        self.devices = devices
+        self.n_dp, self.n_ls = n_dp, n_ls
+        self.L = L
+        self.L_pad, self.Lp, self.pad = ec_kernels.mesh_geometry(L, n_ls)
+        self.chain = self.Lp % CRC_SEG == 0
+        self.comb = None if self.chain else \
+            ec_kernels._slice_combine_matrices(n_ls, self.Lp)
+        self.cuda = devices[0].type == "cuda"
+        self.streams = [torch.cuda.Stream(device=d) for d in devices] \
+            if self.cuda else None
+
+    def ctx(self, m: int):
+        """Member m's device and stream as the current ones."""
+        if not self.cuda:
+            return contextlib.nullcontext()
+        stack = contextlib.ExitStack()
+        stack.enter_context(torch.cuda.device(self.devices[m]))
+        stack.enter_context(torch.cuda.stream(self.streams[m]))
+        return stack
+
+    def _cols(self, j: int) -> tuple[int, int, int]:
+        """(first source column, columns, first destination column) of
+        slice j in the unpadded row (no columns for a slice that lies in
+        the front pad)."""
+        start = j * self.Lp - self.pad
+        c0 = max(0, start)
+        c1 = max(c0, start + self.Lp)
+        return c0, c1 - c0, c0 - start
+
+    def _copy_2d(self, dst: int, dpitch: int, src: int, spitch: int,
+                 width: int, height: int, m: int) -> None:
+        """A strided copy on member m's stream, its card current."""
+        with torch.cuda.device(self.devices[m]):
+            err = _lib("crc32c").ceph_copy_2d(
+                dst, dpitch, src, spitch, width, height,
+                self.streams[m].cuda_stream)
+        _raise_on(err, "mesh copy")
+
+    def upload(self, batch: np.ndarray) -> list:
+        """(S, ..., L) host batch -> members' (Sd, ..., Lp) slices."""
+        S = batch.shape[0]
+        Sd = -(-S // self.n_dp)
+        if not self.cuda:
+            arr = ec_kernels._mesh_pad(batch, self.n_dp, self.L_pad,
+                                       self.pad)
+            return [t for row in ec_kernels._mesh_slices(
+                arr, self.devices, self.n_dp, self.n_ls, self.Lp)
+                for t in row]
+        batch = np.ascontiguousarray(batch)
+        mid = batch.shape[1:-1]
+        C = int(np.prod(mid, dtype=np.int64))
+        out = []
+        for m, dev in enumerate(self.devices):
+            i, j = divmod(m, self.n_ls)
+            live = max(0, min(S, (i + 1) * Sd) - i * Sd)
+            with self.ctx(m):
+                t = torch.empty((Sd,) + mid + (self.Lp,), dtype=torch.uint8,
+                                device=dev)
+                if live < Sd:
+                    t[live:].zero_()
+                c0, w, d0 = self._cols(j)
+                if d0:
+                    t[:live, ..., :d0].zero_()
+                if live:
+                    self._copy_2d(t.data_ptr() + d0, self.Lp,
+                                  batch.ctypes.data + i * Sd * C * self.L
+                                  + c0, self.L, w, live * C, m)
+            out.append(t)
+        return out
+
+    def download(self, parts: list, S: int) -> np.ndarray:
+        """Members' (Sd, ..., Lp) outputs -> one (S, ..., L) host array."""
+        if not self.cuda:
+            grid = [parts[i * self.n_ls:(i + 1) * self.n_ls]
+                    for i in range(self.n_dp)]
+            return ec_kernels._host_rows(grid, S, self.pad)
+        Sd = parts[0].shape[0]
+        mid = tuple(parts[0].shape[1:-1])
+        C = int(np.prod(mid, dtype=np.int64))
+        host = torch.empty((S,) + mid + (self.L,), dtype=torch.uint8,
+                           pin_memory=True)
+        for m, t in enumerate(parts):
+            i, j = divmod(m, self.n_ls)
+            live = max(0, min(S, (i + 1) * Sd) - i * Sd)
+            c0, w, d0 = self._cols(j)
+            if live:
+                self._copy_2d(host.data_ptr() + i * Sd * C * self.L + c0,
+                              self.L, t.data_ptr() + d0, self.Lp, w,
+                              live * C, m)
+        return host.numpy()
+
+    def _gather(self, m: int, t: torch.Tensor) -> torch.Tensor:
+        """Member m's output `t` as a tensor on the first member that its
+        stream may read (after member m's work queued so far)."""
+        if not self.cuda:
+            return t.to(self.devices[0])
+        if m == 0:
+            return t
+        done = torch.cuda.Event()
+        done.record(self.streams[m])
+        if self.devices[m] == self.devices[0]:
+            self.streams[0].wait_event(done)
+            t.record_stream(self.streams[0])
+            return t
+        with self.ctx(0):
+            dst = torch.empty_like(t, device=self.devices[0])
+        n = t.numel() * t.element_size()
+        self._copy_2d(dst.data_ptr(), n, t.data_ptr(), n, n, 1, m)
+        moved = torch.cuda.Event()
+        moved.record(self.streams[m])
+        self.streams[0].wait_event(moved)
+        return dst
+
+    def combine(self, segs: list) -> torch.Tensor:
+        """Members' segment CRCs (Sd, R, nseg) uint32 -> the (S_pad, R)
+        row CRCs on the first member."""
+        Sd, R = segs[0].shape[:2]
+        if not self.chain:
+            parts = []
+            for m, seg in enumerate(segs):
+                with self.ctx(m):
+                    parts.append(crc32c_chain(
+                        seg.reshape(-1, seg.shape[-1])).view(Sd, R))
+            segs = parts
+        moved = [self._gather(m, t) for m, t in enumerate(segs)]
+        with self.ctx(0):
+            rows = []
+            for i in range(self.n_dp):
+                row = moved[i * self.n_ls:(i + 1) * self.n_ls]
+                if self.chain:
+                    rows.append(torch.cat(
+                        [t.view(torch.int32) for t in row], dim=-1))
+                else:
+                    rows.append(ec_kernels.combine_crc_partials(
+                        row, self.comb).view(torch.int32))
+            out = torch.cat(rows)
+            if self.chain:
+                out = crc32c_chain(out.view(torch.uint32).reshape(
+                    -1, out.shape[-1])).view(torch.int32).view(
+                        self.n_dp * Sd, R)
+            return out.cpu().numpy().view(np.uint32)
+
+    def finish(self) -> None:
+        """Wait for every member's queued work (the downloads)."""
+        if self.cuda:
+            for stream in self.streams:
+                stream.synchronize()
+
+
+def _mesh_route(devices, n_dp, n_ls, L: int) -> _MeshRoute | None:
+    """The card's route over `devices`, or None when they are all CPU
+    devices (the plain version then serves)."""
+    devices, n_dp, n_ls = ec_kernels.mesh_layout(devices, n_dp, n_ls)
+    kinds = {d.type for d in devices}
+    if kinds == {"cpu"}:
+        return None
+    if kinds != {"cuda"}:
+        raise ValueError(f"mesh: members must all be CUDA or all CPU "
+                         f"devices, got {sorted(kinds)}")
+    return _MeshRoute(devices, n_dp, n_ls, int(L))
+
+
+def mesh_encode_crc(matrix: np.ndarray, route: _MeshRoute,
+                    donate: bool = False):
+    """The mesh encode over `route` (``make_mesh_encode_crc_fn``'s body,
+    which the tests also run on a CPU route)."""
+    matrix = np.ascontiguousarray(matrix, dtype=np.uint8)
+    m, k = matrix.shape
+
+    def run(batch, keep_resident: bool = False):
+        batch = np.asarray(batch, dtype=np.uint8)
+        if batch.ndim != 3 or batch.shape[1:] != (k, route.L):
+            raise ValueError(f"mesh encode: want (S, {k}, {route.L}), got "
+                             f"{batch.shape}")
+        S = batch.shape[0]
+        data = route.upload(batch)
+        parity, segs = [], []
+        for j, x in enumerate(data):
+            with route.ctx(j):
+                p, seg = gf_encode_segment_crcs(matrix, x)
+            parity.append(p)
+            segs.append(seg)
+        host_parity = route.download(parity, S)
+        crcs = route.combine(segs)[:S]
+        route.finish()
+        resident = None
+        if keep_resident and not donate:
+            grid = [list(range(i * route.n_ls, (i + 1) * route.n_ls))
+                    for i in range(route.n_dp)]
+            resident = (ec_kernels.MeshRows([[data[j] for j in r]
+                                             for r in grid]),
+                        ec_kernels.MeshRows([[parity[j] for j in r]
+                                             for r in grid]),
+                        route.pad)
+        return host_parity, crcs, resident
+
+    run.chunk_pad = route.pad
+    return run
+
+
+def mesh_crc(route: _MeshRoute):
+    """The mesh CRC over `route` (``make_mesh_crc_fn``'s body)."""
+
+    def run(batch):
+        batch = np.asarray(batch, dtype=np.uint8)
+        if batch.ndim != 2 or batch.shape[1] != route.L:
+            raise ValueError(f"mesh crc: want (B, {route.L}), got "
+                             f"{batch.shape}")
+        rows = route.upload(batch)
+        segs = []
+        for j, x in enumerate(rows):
+            with route.ctx(j):
+                segs.append(crc32c_segments(x).unsqueeze(1))
+        out = route.combine(segs)[:batch.shape[0], 0]
+        route.finish()
+        return out
+
+    run.chunk_pad = route.pad
+    return run
+
+
+def make_mesh_encode_crc_fn(matrix: np.ndarray, L: int, devices,
+                            n_dp: int = 1, n_ls: int | None = None,
+                            compute: str = DEFAULT_COMPUTE,
+                            donate: bool = False):
+    """``ec_kernels.make_mesh_encode_crc_fn`` with the hand kernels on
+    CUDA members: run(batch (S, k, L) host uint8, keep_resident=False) ->
+    (parity (S, m, L), crcs (S, k+m) uint32, resident).  Per call each
+    member launches gf_encode_crc once, then crc32c_chain runs once on
+    the first member (Lp a multiple of 4 KiB) or once on each member.
+    CPU members run the plain version."""
+    route = _mesh_route(devices, n_dp, n_ls, L)
+    if route is None:
+        return ec_kernels.make_mesh_encode_crc_fn(matrix, L, devices, n_dp,
+                                                  n_ls, compute, donate)
+    return mesh_encode_crc(matrix, route, donate)
+
+
+def make_mesh_crc_fn(L: int, devices, n_dp: int = 1,
+                     n_ls: int | None = None,
+                     compute: str = DEFAULT_COMPUTE):
+    """``ec_kernels.make_mesh_crc_fn`` with the hand kernels on CUDA
+    members: run(batch (B, L) host uint8) -> (B,) uint32.  Per call each
+    member launches crc32c_segments once, and crc32c_chain runs as in
+    the encode."""
+    route = _mesh_route(devices, n_dp, n_ls, L)
+    if route is None:
+        return ec_kernels.make_mesh_crc_fn(L, devices, n_dp, n_ls, compute)
+    return mesh_crc(route)

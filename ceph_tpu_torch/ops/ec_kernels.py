@@ -14,8 +14,10 @@ per-position 32x32 combines (``ops/crc32c.py``).
 They serve two roles: on CPU tensors they ARE the implementation (the
 CUDA wrappers in ``ops/cuda_ec.py`` route CPU tensors here), and on the
 card they are the plain reference the hand kernels are held against.
-The TPU's MXU block-diagonal packing and the mesh-sharded variants do
-not carry over.
+The TPU's MXU block-diagonal packing does not carry over.  The mesh
+functions (``make_mesh_encode_crc_fn``, ``make_mesh_crc_fn``) split one
+batch's chunk length across an explicit list of devices; their form
+here serves CPU lanes and the tests, ``cuda_ec`` has the card's.
 
 Every ``make_*`` function returns a callable that takes a uint8 tensor
 (or a numpy array, which is moved to the package device) and returns
@@ -385,3 +387,221 @@ def make_encode_crc_witness_fn(matrix: np.ndarray, nbytes: int,
     """fn(data (B, k, L)) -> crcs (B, k+m) uint32 only: parity never
     leaves the device, and the CRCs depend on every parity byte."""
     return _encode_crc(matrix, nbytes, block, compute, True)
+
+
+# ---------------------------------------------------------------------------
+# Mesh-sharded encode + CRC: one batch across a dp x ls plane of devices
+#
+# Parity is row-local in the chunk-length axis L (parity byte l depends
+# only on data bytes at position l), so splitting L across the "ls"
+# members needs no exchange for the parity: each member encodes its
+# L-slice against the whole generator.  The per-chunk CRC (seed 0) is
+# GF(2)-linear in the message, so each member folds its slice alone, the
+# partial of slice j is advanced over the (n_ls-1-j)*Lp bytes that follow
+# it, and the partials XOR into the chunk's CRC on the plane's first
+# member.  L that does not divide by n_ls is FRONT-padded with zeros:
+# under seed 0 the CRC stays 0 through leading zeros and the pad
+# columns' parity is zero, so both outputs slice back exactly.  The "dp"
+# axis splits the stripes; S tail-pads with zero stripes.  Members are
+# laid out row-major: member (i, j) is devices[i * n_ls + j].
+# ---------------------------------------------------------------------------
+
+
+def mesh_geometry(nbytes: int, n_ls: int) -> tuple[int, int, int]:
+    """(L_pad, Lp, pad) for splitting an L=nbytes chunk axis over n_ls
+    members: L front-pads to the next multiple of n_ls."""
+    L_pad = -(-nbytes // n_ls) * n_ls
+    return L_pad, L_pad // n_ls, L_pad - nbytes
+
+
+def mesh_layout(devices, n_dp: int = 1,
+                n_ls: int | None = None) -> tuple[tuple, int, int]:
+    """(devices, n_dp, n_ls) checked: n_ls defaults to every device on
+    the chunk-length axis."""
+    devices = tuple(torch.device(d) for d in devices)
+    n_dp = max(1, int(n_dp))
+    if n_ls is None:
+        n_ls = len(devices) // n_dp
+    if n_dp * n_ls != len(devices) or not devices:
+        raise ValueError(f"mesh {n_dp}x{n_ls} != {len(devices)} devices")
+    return devices, n_dp, int(n_ls)
+
+
+def _slice_combine_matrices(n_ls: int, Lp: int) -> np.ndarray:
+    """(n_ls, 32, 32) GF(2): slice j's CRC partial advanced over the
+    (n_ls-1-j)*Lp bytes that follow it, so XOR over j yields the full
+    chunk CRC (linearity of seed-0 CRC32C in the message bits)."""
+    return np.stack([crc_mod.advance_matrix((n_ls - 1 - j) * Lp)
+                     for j in range(n_ls)]).astype(np.uint8)
+
+
+def combine_crc_partials(partials: list, mats: np.ndarray) -> torch.Tensor:
+    """XOR over j of mats[j] applied to partials[j], each (...) uint32 on
+    one device: the slice CRCs of a row in ls order -> the row's CRC."""
+    dev = partials[0].device
+    shifts = torch.arange(32, dtype=torch.int64, device=dev)
+    acc = None
+    for part, mat in zip(partials, mats):
+        bits = (part.view(torch.int32).to(torch.int64).unsqueeze(-1)
+                >> shifts) & 1                             # (..., 32)
+        adv = _contract(torch.as_tensor(mat, device=dev),
+                        bits.unsqueeze(-1), torch.int32)[..., 0]
+        acc = adv if acc is None else acc + adv
+    return to_u32(((acc & 1).to(torch.int64) << shifts).sum(-1))
+
+
+class MeshRows:
+    """A (S, C, L_pad) uint8 array held in pieces on the members of a
+    dp x ls plane: member (i, j) holds rows [i*Sd, (i+1)*Sd) and columns
+    [j*Lp, (j+1)*Lp) of it as one (Sd, C, Lp) tensor.  ``rows`` and
+    ``select`` cut views; ``to_host`` gathers the cut into one numpy
+    array.  The mesh functions' resident inputs and parity, which the
+    HBM cache keeps."""
+
+    __slots__ = ("grid", "row0", "nrows", "chunk")
+
+    def __init__(self, grid: list, row0: int = 0, nrows: int | None = None,
+                 chunk: int | None = None):
+        self.grid = grid
+        self.row0 = row0
+        self.nrows = len(grid) * grid[0][0].shape[0] if nrows is None \
+            else nrows
+        self.chunk = chunk
+
+    @property
+    def shape(self) -> tuple:
+        C, Lp = self.grid[0][0].shape[1:]
+        L_pad = Lp * len(self.grid[0])
+        return (self.nrows, L_pad) if self.chunk is not None \
+            else (self.nrows, C, L_pad)
+
+    def numel(self) -> int:
+        return int(np.prod(self.shape))
+
+    def rows(self, start: int, stop: int) -> "MeshRows":
+        return MeshRows(self.grid, self.row0 + start, stop - start,
+                        self.chunk)
+
+    def select(self, chunk: int) -> "MeshRows":
+        """Chunk row `chunk` of every stripe: (S, L_pad)."""
+        return MeshRows(self.grid, self.row0, self.nrows, chunk)
+
+    def to_host(self) -> np.ndarray:
+        Sd = self.grid[0][0].shape[0]
+        parts = []
+        for i, row in enumerate(self.grid):
+            a = max(self.row0, i * Sd)
+            b = min(self.row0 + self.nrows, (i + 1) * Sd)
+            if a >= b:
+                continue
+            pieces = [t[a - i * Sd: b - i * Sd] for t in row]
+            if self.chunk is not None:
+                pieces = [p[:, self.chunk] for p in pieces]
+            parts.append(np.concatenate([p.cpu().numpy() for p in pieces],
+                                        axis=-1))
+        return np.concatenate(parts)
+
+
+def _mesh_pad(batch: np.ndarray, n_dp: int, L_pad: int,
+              pad: int) -> np.ndarray:
+    """batch (S, ..., L) with L front-padded to L_pad and S tail-padded
+    to a multiple of n_dp: a host copy of the whole batch when either
+    pads, audited as ``ec.mesh_pad``."""
+    S = batch.shape[0]
+    S_pad = -(-S // n_dp) * n_dp
+    if not pad and S_pad == S:
+        return batch
+    arr = np.zeros((S_pad,) + batch.shape[1:-1] + (L_pad,), dtype=np.uint8)
+    arr[:S, ..., pad:] = batch
+    from ..utils import copyaudit
+    copyaudit.note("ec.mesh_pad", batch.nbytes)
+    return arr
+
+
+def _mesh_slices(arr: np.ndarray, devices, n_dp: int, n_ls: int,
+                 Lp: int) -> list:
+    """The padded batch as a dp x ls grid of member tensors."""
+    Sd = arr.shape[0] // n_dp
+    return [[torch.from_numpy(np.ascontiguousarray(
+                arr[i * Sd:(i + 1) * Sd, ..., j * Lp:(j + 1) * Lp])).to(
+                    devices[i * n_ls + j])
+             for j in range(n_ls)] for i in range(n_dp)]
+
+
+def _host_rows(grid: list, S: int, pad: int) -> np.ndarray:
+    """A dp x ls grid of (Sd, C, Lp) member tensors -> (S, C, L) host
+    array: members joined along L, rows along S, pads cut."""
+    full = np.concatenate([np.concatenate([t.cpu().numpy() for t in row],
+                                          axis=-1) for row in grid])
+    return full[:S, ..., pad:]
+
+
+def make_mesh_encode_crc_fn(matrix: np.ndarray, nbytes: int, devices,
+                            n_dp: int = 1, n_ls: int | None = None,
+                            compute: str = DEFAULT_COMPUTE,
+                            donate: bool = False):
+    """Mesh-sharded fused encode + CRC over `devices` (a dp x ls plane).
+
+    Returns run(batch (S, k, L=nbytes) uint8 numpy, keep_resident=False)
+    -> (parity (S, m, L) uint8, crcs (S, k+m) uint32, resident), host
+    arrays equal to the single-device fused pass's.  resident is None,
+    or (dev_data, dev_parity, chunk_pad) as :class:`MeshRows` over the
+    members' padded slices when keep_resident is asked and the input
+    was not donated (a donated input is released after the kernels)."""
+    devices, n_dp, n_ls = mesh_layout(devices, n_dp, n_ls)
+    matrix = np.ascontiguousarray(matrix, dtype=np.uint8)
+    L = int(nbytes)
+    L_pad, Lp, pad = mesh_geometry(L, n_ls)
+    local = _encode_crc(matrix, Lp, DEFAULT_CRC_BLOCK, compute, False)
+    comb = _slice_combine_matrices(n_ls, Lp)
+
+    def run(batch, keep_resident: bool = False):
+        batch = np.asarray(batch, dtype=np.uint8)
+        S = batch.shape[0]
+        grid = _mesh_slices(_mesh_pad(batch, n_dp, L_pad, pad), devices,
+                            n_dp, n_ls, Lp)
+        par_grid, rows = [], []
+        for row in grid:
+            outs = [local(x) for x in row]
+            par_grid.append([p for p, _c in outs])
+            first = row[0].device
+            rows.append(combine_crc_partials(
+                [c.to(first) for _p, c in outs], comb))
+        crcs = torch.cat([r.to(devices[0]) for r in rows])
+        crcs = crcs.view(torch.int32).cpu().numpy().view(np.uint32)[:S]
+        parity = _host_rows(par_grid, S, pad)
+        resident = None
+        if keep_resident and not donate:
+            resident = (MeshRows(grid), MeshRows(par_grid), pad)
+        return parity, crcs, resident
+
+    run.chunk_pad = pad
+    return run
+
+
+def make_mesh_crc_fn(nbytes: int, devices, n_dp: int = 1,
+                     n_ls: int | None = None,
+                     compute: str = DEFAULT_COMPUTE):
+    """Mesh-sharded CRC32C (seed 0): run(batch (B, nbytes) uint8 numpy)
+    -> (B,) uint32, the deep-scrub channel's mega-batch form.  Each
+    member folds its slice of every row; the partials combine on the
+    plane's first member."""
+    devices, n_dp, n_ls = mesh_layout(devices, n_dp, n_ls)
+    L = int(nbytes)
+    L_pad, Lp, pad = mesh_geometry(L, n_ls)
+    local = make_crc_fn(Lp, compute=compute)
+    comb = _slice_combine_matrices(n_ls, Lp)
+
+    def run(batch):
+        batch = np.asarray(batch, dtype=np.uint8)
+        B = batch.shape[0]
+        grid = _mesh_slices(_mesh_pad(batch, n_dp, L_pad, pad), devices,
+                            n_dp, n_ls, Lp)
+        rows = [combine_crc_partials([local(x).to(row[0].device)
+                                      for x in row], comb)
+                for row in grid]
+        out = torch.cat([r.to(devices[0]) for r in rows])
+        return out.view(torch.int32).cpu().numpy().view(np.uint32)[:B]
+
+    run.chunk_pad = pad
+    return run

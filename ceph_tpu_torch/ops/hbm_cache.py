@@ -43,9 +43,15 @@ whose card holds them; when a lane quarantines (device error, real or
 injected) its entries drop immediately — a redrain re-uploads from host
 rather than ever serving shards from a card in an unknown state.
 
+A mesh dispatch's entries are MESH-RESIDENT: their stripes stay split
+across the plane's members (:class:`~ceph_tpu_torch.ops.ec_kernels.MeshRows`,
+each chunk front-padded by the plane's chunk pad), they are pinned to
+the tuple of member lanes, and a quarantine of any member drops them.
+Their reads gather the members' slices and cut the pad; they do no
+append-through.
+
 Capacity is bounded by ``osd_ec_hbm_cache_bytes`` (LRU on committed
-entries); 0 disables the cache entirely.  The reference's mesh-resident
-entries (stripes sharded across several cards) come with the mesh mode.
+entries); 0 disables the cache entirely.
 """
 
 from __future__ import annotations
@@ -56,6 +62,8 @@ from collections import OrderedDict
 
 import numpy as np
 import torch
+
+from .ec_kernels import MeshRows
 
 DEFAULT_CAPACITY = 64 << 20
 MAX_PENDING = 64
@@ -81,6 +89,15 @@ def _parse_ver(blob: bytes) -> tuple | None:
     except (ValueError, SyntaxError, UnicodeDecodeError, AttributeError):
         return None
     return tuple(ev) if isinstance(ev, tuple) else None
+
+
+def _on_lane(entry_lane, lane: int) -> bool:
+    """Whether an entry is resident on `lane`: a mesh-resident entry
+    pins the tuple of its member lanes, and losing any one of them loses
+    a slice of its stripes."""
+    if isinstance(entry_lane, tuple):
+        return lane in entry_lane
+    return entry_lane == lane
 
 
 def _ready_event(t: torch.Tensor, stream) -> "torch.cuda.Event | None":
@@ -142,26 +159,34 @@ class CacheEntry:
     (S, m, L) the on-device encode output — both uint8 tensors still on
     the lane's card; crcs (S, k+m) uint32 are the fused kernel's
     per-stripe chunk CRCs (host-side, 4 bytes per chunk).  `ready` is
-    an event of the producing stream after both tensors were written."""
+    an event of the producing stream after both tensors were written.
+    A mesh dispatch's entry holds both as :class:`MeshRows` across the
+    plane's members, `lane` is the tuple of member lanes and `pad` the
+    zero bytes each chunk was front-padded with (the mesh run waited
+    for its members, so it needs no event)."""
 
     __slots__ = ("cid", "oid", "version", "size", "chunk_size", "k",
-                 "m", "dev_data", "dev_parity", "crcs", "lane", "ready",
-                 "nbytes", "committed", "lane_dropped")
+                 "m", "dev_data", "dev_parity", "crcs", "lane", "pad",
+                 "ready", "nbytes", "committed", "lane_dropped")
 
-    def __init__(self, intent: CacheIntent, lane: int, dev_data,
-                 dev_parity, crcs: np.ndarray, stream=None):
+    def __init__(self, intent: CacheIntent, lane, dev_data,
+                 dev_parity, crcs: np.ndarray, stream=None,
+                 pad: int = 0):
         self.cid = intent.cid
         self.oid = intent.oid
         self.version = intent.version
         self.size = intent.size
         self.chunk_size = intent.chunk_size
-        self.dev_data = torch.as_tensor(dev_data)
-        self.dev_parity = torch.as_tensor(dev_parity)
+        mesh = isinstance(dev_data, MeshRows)
+        self.dev_data = dev_data if mesh else torch.as_tensor(dev_data)
+        self.dev_parity = dev_parity if mesh \
+            else torch.as_tensor(dev_parity)
         self.k = int(self.dev_data.shape[1])
         self.m = int(self.dev_parity.shape[1])
         self.crcs = np.asarray(crcs, dtype=np.uint32)
         self.lane = lane
-        self.ready = _ready_event(self.dev_data, stream)
+        self.pad = int(pad)
+        self.ready = None if mesh else _ready_event(self.dev_data, stream)
         self.nbytes = (self.dev_data.numel() + self.dev_parity.numel()
                        + self.crcs.nbytes)
         self.committed = False
@@ -183,7 +208,10 @@ class CacheEntry:
         Any other device error raises: the caller must not quietly
         serve the store instead of reporting a broken card."""
         try:
-            (arr,) = to_host((src,), self.ready)
+            if isinstance(src, MeshRows):
+                arr = src.to_host()
+            else:
+                (arr,) = to_host((src,), self.ready)
         except RuntimeError:
             if self.lane_dropped:
                 return None
@@ -200,7 +228,14 @@ class CacheEntry:
         arr = self._fetch(self.dev_data)
         if arr is None:
             return None
-        arr = np.ascontiguousarray(arr)
+        if self.pad:
+            # cutting each chunk's front pad leaves a strided view, and
+            # one rope needs it contiguous: a host copy on the read path
+            arr = np.ascontiguousarray(arr[:, :, self.pad:])
+            from ..utils import copyaudit
+            copyaudit.note("cache.mesh_unpad", arr.nbytes)
+        else:
+            arr = np.ascontiguousarray(arr)
         from ..utils.bufferlist import BufferList
         rope = BufferList(memoryview(arr.reshape(-1))[: self.size])
         get().count_read_hit_bytes(self.size)
@@ -210,10 +245,14 @@ class CacheEntry:
         """One shard file's bytes (chunk `shard` of every stripe),
         fetched D2H — only this shard's rows cross the boundary (None
         if the entry is gone, see `_fetch`)."""
-        src = self.dev_data[:, shard] if shard < self.k \
-            else self.dev_parity[:, shard - self.k]
+        if isinstance(self.dev_data, MeshRows):
+            src = self.dev_data.select(shard) if shard < self.k \
+                else self.dev_parity.select(shard - self.k)
+        else:
+            src = self.dev_data[:, shard] if shard < self.k \
+                else self.dev_parity[:, shard - self.k]
         arr = self._fetch(src)
-        return None if arr is None else arr.tobytes()
+        return None if arr is None else arr[:, self.pad:].tobytes()
 
 
 class HbmStripeCache:
@@ -243,17 +282,19 @@ class HbmStripeCache:
 
     # -- write path --------------------------------------------------------
 
-    def stage(self, intent: CacheIntent, lane: int, dev_data,
-              dev_parity, crcs: np.ndarray, stream=None) -> None:
+    def stage(self, intent: CacheIntent, lane, dev_data,
+              dev_parity, crcs: np.ndarray, stream=None,
+              pad: int = 0) -> None:
         """Pipeline collect-time staging: the entry exists but is NOT
         servable until the producer commits it (shard bytes on disk).
         `stream` is the stream that produced the tensors (default: the
-        caller's current stream)."""
+        caller's current stream).  A mesh dispatch passes the tuple of
+        member lanes as `lane`, :class:`MeshRows` and the chunk pad."""
         if self.capacity <= 0:
             return
         try:
             ent = CacheEntry(intent, lane, dev_data, dev_parity, crcs,
-                             stream=stream)
+                             stream=stream, pad=pad)
         except (TypeError, ValueError, IndexError, RuntimeError):
             return
         if ent.nbytes > self.capacity:
@@ -315,7 +356,11 @@ class HbmStripeCache:
             return False
         if ent is None or ent.version != tuple(old_version) or \
                 ent.chunk_size != chunk_size or \
-                ent.stripes < full_before:
+                ent.stripes < full_before or \
+                isinstance(ent.lane, tuple) or ent.pad:
+            # mesh-resident entries do no append-through: the tail would
+            # have to be split across the members again; the next whole
+            # write stages the object anew
             self.invalidate(cid, oid)
             return False
         try:
@@ -453,7 +498,7 @@ class HbmStripeCache:
         with self._lock:
             dropped = 0
             for key in [k for k, e in self._entries.items()
-                        if e.lane == lane]:
+                        if _on_lane(e.lane, lane)]:
                 ent = self._entries.pop(key)
                 ent.lane_dropped = True
                 self._bytes -= ent.nbytes
@@ -461,7 +506,7 @@ class HbmStripeCache:
                 if key not in self._pending:
                     self._bases.discard(key)
             for key in [k for k, e in self._pending.items()
-                        if e.lane == lane]:
+                        if _on_lane(e.lane, lane)]:
                 pend = self._pending.pop(key)
                 pend.lane_dropped = True
                 self._pbytes -= pend.nbytes

@@ -56,6 +56,29 @@ producer feeds this one dispatcher:
   * **cost-aware placement** — per-lane, per-shape-bucket EMAs of the
     marginal service time override least-loaded when a measured-faster
     lane would win by ``COST_MARGIN``.
+  * **mesh dispatch** — ONE coalesced batch whose staged bytes reach
+    ``mesh_min_bytes`` (conf ``osd_ec_mesh_min_bytes``) is served by the
+    channel's ``mesh_fn`` with its chunk length split across a plane of
+    the active lanes' devices (``device_mesh``, conf
+    ``osd_ec_device_mesh``: "auto" = every active lane on the
+    chunk-length axis, "N" = at most N, "AxB" = dp x ls) instead of
+    splitting into independent per-lane row batches.  A plane needs two
+    live lanes, so one card never forms one.  A fault of a member rolled
+    at placement quarantines that lane and drops the plane; a mesh
+    computation that fails drops the plane and requeues the batch
+    latched off the mesh: row splits on the surviving lanes serve it
+    (``mesh_dispatches`` / ``mesh_degrades``).
+  * **pooled staging arenas** — an encode of ``mesh_min_bytes`` and up
+    stages into a pinned arena from a free pool of at most
+    ``ARENA_POOL_MAX`` (:meth:`EcDevicePipeline.checkout_arena`).  On the
+    mesh path with nothing to keep resident, the arena is DONATED: its
+    pinned memory uploads straight into the members' slices and the
+    device input is released after the kernels, so the staging copy is
+    the upload and ``ec.stage`` retires for that write
+    (``arena_donations``); any other serve notes ``ec.stage`` at
+    resolve.  An arena re-enters the pool only once it was resolved and
+    the CUDA event of its last upload fired; one that was never resolved
+    is dropped.
 
 Where this differs from the reference: it never hides a failure of the
 card behind the host.  A real device error with no lane left, a lane
@@ -64,8 +87,8 @@ affected future (naming the lane and the channel, counted in
 :meth:`~EcDevicePipeline.stats`); the codec does not degrade on them.
 The host still serves a batch whose kernels are warming up (first use
 of a shape), a channel the owner routes to the host, and injected
-faults, as in the reference.  The mesh mode (one batch sharded across
-several cards) is not ported yet.
+faults, as in the reference.  A mesh failure degrades to row splits on
+the device lanes, never to the host.
 
 Host batches run inline on the dispatcher thread — single-threaded host
 execution is itself the coalescing backpressure.  Timing recorded per
@@ -85,13 +108,14 @@ import numpy as np
 import torch
 
 from .. import get_device
-from ..utils import faults
+from ..utils import copyaudit, faults
 from . import hbm_cache
 
 # defaults; daemons override via configure() from their conf
 # (osd_ec_pipeline_depth / _coalesce_ms / _max_batch /
 #  osd_ec_device_shards / osd_ec_pipeline_scrub_weight /
 #  osd_ec_cost_aware_placement / osd_ec_hbm_cache_bytes /
+#  osd_ec_mesh_min_bytes / osd_ec_device_mesh /
 #  osd_qos_cost_bytes_unit)
 DEFAULT_DEPTH = 2
 DEFAULT_COALESCE_WAIT = 0.002
@@ -99,10 +123,15 @@ DEFAULT_MAX_BATCH = 256
 DEFAULT_SPLIT_MIN = 4       # min stripes per per-lane part of a split
 DEFAULT_SCRUB_WEIGHT = 0.25
 DEFAULT_COST_AWARE = True
+# a single lane's staging budget: a coalesced batch of this many bytes
+# and up dispatches across the mesh plane when one forms
+DEFAULT_MESH_MIN_BYTES = 256 << 20
+DEFAULT_DEVICE_MESH = "auto"
 # dmClock cost normalization for the dispatch-lane tenant picker
 # (mirrors the op queue's osd_qos_cost_bytes_unit; 0 = cost 1/pick)
 DEFAULT_QOS_COST_UNIT = 4096
 STAGING_BUFFERS = 2         # pinned upload buffers per lane
+ARENA_POOL_MAX = 4          # free mesh-sized staging arenas kept for reuse
 # staged bytes from which an encode stages into its own pinned arena
 # (checkout_arena).  A part whose items all sit in arenas uploads them
 # straight from there, one copy each, instead of copying their rows
@@ -173,14 +202,21 @@ class PipelineChannel:
     quarantined every lane (the tpu plugin degrades there).
     record(path, nbytes, secs, depth, device) feeds the owner's
     measured-routing EMA.  qos_class "scrub" marks channels that yield
-    to "write" channels under contention."""
+    to "write" channels under contention.
+
+    mesh_fn(batch, plane, donate=False, keep_resident=False) is the
+    optional mesh entry: serve one whole host batch with its chunk
+    length split across `plane`'s devices, returning (outputs, resident)
+    — outputs equal to host_fn(batch), resident the members' tensors for
+    the HBM cache or None — or None while it warms up (the batch then
+    row-splits on the lanes)."""
 
     __slots__ = ("key", "host_fn", "device_fn", "route", "on_error",
-                 "record", "max_coalesce", "qos_class")
+                 "record", "max_coalesce", "qos_class", "mesh_fn")
 
     def __init__(self, key, host_fn, device_fn=None, route=None,
                  on_error=None, record=None, max_coalesce=None,
-                 qos_class="write"):
+                 qos_class="write", mesh_fn=None):
         self.key = key
         self.host_fn = host_fn
         self.device_fn = device_fn
@@ -190,30 +226,78 @@ class PipelineChannel:
         self.record = record or _no_record
         self.max_coalesce = max_coalesce
         self.qos_class = qos_class
+        self.mesh_fn = mesh_fn
 
 
 class StagingArena:
     """The staging buffer of one large encode
     (:meth:`EcDevicePipeline.checkout_arena`): `tensor` is pinned host
-    memory on a CUDA package device, and `buf` its numpy view, which
-    the producer stages its stripes into.  A lane's stager uploads the
+    memory on a CUDA package device, and `buf` its numpy view, which the
+    producer stages its stripes into.  A lane's stager uploads the
     stripes straight from `tensor` instead of copying them into the
-    lane's own pinned buffer first.
+    lane's own pinned buffer first, and a mesh dispatch uploads each
+    member's slice straight from it.
 
-    Every arena is fresh from PyTorch's caching host allocator and is
-    never handed out twice, so nothing can overwrite it under a pending
-    upload or a queued item that a timed-out producer left behind; its
-    memory goes back to the allocator with the last view of it."""
+    An arena of ``mesh_min_bytes`` and up comes from the pipeline's free
+    pool and goes back there on :meth:`release`, which the last reader
+    (the shard fan-out) calls — but only once the pipeline resolved its
+    item (``consumed``: a donated mesh upload was the staging copy;
+    ``noted``: ``ec.stage`` was noted) and the CUDA event of its last
+    upload fired.  An arena that was never resolved (its producer timed
+    out, and the queued item still views `buf`) or whose upload is still
+    pending is dropped instead: its memory goes back to the allocator
+    with its last view.  A smaller arena is fresh from the allocator and
+    never pooled."""
 
-    __slots__ = ("tensor", "buf")
+    __slots__ = ("tensor", "buf", "payload_bytes", "consumed", "noted",
+                 "upload_event", "_pool")
 
-    def __init__(self, tensor: torch.Tensor):
+    def __init__(self, tensor: torch.Tensor, payload_bytes: int,
+                 pool=None):
         self.tensor = tensor
         self.buf = tensor.numpy()
+        self.payload_bytes = int(payload_bytes)
+        self.consumed = False
+        self.noted = False
+        self.upload_event = None     # CUDA event of the last upload
+        self._pool = pool
+
+    @property
+    def pooled(self) -> bool:
+        return self._pool is not None
+
+    def release(self) -> None:
+        pool, self._pool = self._pool, None
+        if pool is None:
+            return
+        ev = self.upload_event
+        if (self.consumed or self.noted) and (ev is None or ev.query()):
+            pool._return_arena(self)
+        else:
+            self.tensor = self.buf = None
+
+
+class _MeshPlane:
+    """The dp x ls plane a mesh dispatch splits a batch across: a
+    snapshot of active lanes.  Dropped when any member lane quarantines
+    or the lanes are rebuilt."""
+
+    __slots__ = ("lanes", "lane_indices", "devices", "n_dp", "n_ls")
+
+    def __init__(self, lanes: list, n_dp: int, n_ls: int):
+        self.lanes = lanes
+        self.lane_indices = tuple(l.index for l in lanes)
+        self.devices = tuple(l.device for l in lanes)
+        self.n_dp = n_dp
+        self.n_ls = n_ls
+
+    def key(self) -> tuple:
+        return (self.devices, self.n_dp, self.n_ls)
 
 
 class _Item:
-    __slots__ = ("arr", "n", "fut", "t", "cache", "tag", "arena", "ph")
+    __slots__ = ("arr", "n", "fut", "t", "cache", "tag", "arena",
+                 "no_mesh", "ph")
 
     def __init__(self, arr: np.ndarray, cache=None, tag=None,
                  arena=None):
@@ -224,6 +308,7 @@ class _Item:
         self.cache = cache          # hbm_cache.CacheIntent | None
         self.tag = tag              # QoS service class (pool name)
         self.arena = arena          # StagingArena | None
+        self.no_mesh = False        # fell off the mesh: row splits only
         # op-tracing phase stamps (time.monotonic — the span timebase):
         # submit -> picked (coalesce wait) -> stage0/1 (pinned staging
         # and upload issue) -> issue -> collect0 (the lane's stream
@@ -453,6 +538,8 @@ class EcDevicePipeline:
                  split_min: int = DEFAULT_SPLIT_MIN,
                  scrub_weight: float = DEFAULT_SCRUB_WEIGHT,
                  cost_aware: bool = DEFAULT_COST_AWARE,
+                 mesh_min_bytes: int = DEFAULT_MESH_MIN_BYTES,
+                 device_mesh: str = DEFAULT_DEVICE_MESH,
                  qos_cost_unit: int = DEFAULT_QOS_COST_UNIT):
         self.depth = max(1, int(depth))
         self.coalesce_wait = float(coalesce_wait)
@@ -461,7 +548,12 @@ class EcDevicePipeline:
         self.split_min = max(1, int(split_min))
         self.scrub_weight = float(scrub_weight)
         self.cost_aware = bool(cost_aware)
+        self.mesh_min_bytes = int(mesh_min_bytes)
+        self.device_mesh = str(device_mesh)
         self.qos_cost_unit = max(0, int(qos_cost_unit))
+        self._mesh: _MeshPlane | None = None
+        self._arena_lock = threading.Lock()
+        self._arena_free: list[torch.Tensor] = []
         self._lock = threading.Lock()
         # three predicates, one lock: queued work (dispatcher waits),
         # in-flight dispatches (lane stagers/collectors wait), freed
@@ -506,6 +598,12 @@ class EcDevicePipeline:
             "replans": 0,
             # parts uploaded straight from their pinned arena
             "arena_uploads": 0,
+            # mesh dispatches (counted in dev_dispatches, not in the
+            # per-kind counts: a mesh launches its kind's kernels once
+            # per member), planes dropped by a member fault or a failed
+            # mesh computation, and donated arena uploads
+            "mesh_dispatches": 0, "mesh_degrades": 0,
+            "arena_donations": 0,
         }
 
     # -- lifecycle ---------------------------------------------------------
@@ -563,6 +661,7 @@ class EcDevicePipeline:
             if ds is not None:
                 for lane in ds.lanes:
                     lane.alive = False
+            self._mesh = None
             self._stalled = False
             self._inflight_cv.notify_all()
         # lane indices renumber with the topology: entries pinned to
@@ -578,6 +677,7 @@ class EcDevicePipeline:
             if ds is not None:
                 for lane in ds.lanes:
                     lane.alive = False
+            self._mesh = None
             self._stalled = False
             self._work_cv.notify_all()
             self._inflight_cv.notify_all()
@@ -603,20 +703,43 @@ class EcDevicePipeline:
 
     # -- producer side -----------------------------------------------------
 
-    @staticmethod
-    def checkout_arena(nbytes: int,
-                       payload_bytes: int) -> StagingArena | None:
+    def checkout_arena(self, nbytes: int,
+                       payload_bytes: int | None = None
+                       ) -> StagingArena | None:
         """A staging arena of `nbytes` for an encode, or None under
         ARENA_MIN_BYTES (the caller then stages into a plain buffer).
-        Pinned host memory on a CUDA package device.  The stripe tail
-        past `payload_bytes` comes back zeroed; the first
-        `payload_bytes` are the caller's to overwrite entirely."""
-        if nbytes < ARENA_MIN_BYTES:
+        Pinned host memory on a CUDA package device, exclusively the
+        caller's until release().  From `mesh_min_bytes` up it comes
+        from the free pool (see :class:`StagingArena`).  The stripe tail
+        past `payload_bytes` comes back zeroed; the first `payload_bytes`
+        are the caller's to overwrite entirely, so a pooled reuse zeroes
+        only the tail."""
+        zero_from = 0 if payload_bytes is None \
+            else min(int(payload_bytes), nbytes)
+        pooled = 0 < self.mesh_min_bytes <= nbytes
+        if not pooled and nbytes < ARENA_MIN_BYTES:
             return None
-        tensor = torch.empty(nbytes, dtype=torch.uint8,
-                             pin_memory=get_device().type == "cuda")
-        tensor[min(int(payload_bytes), nbytes):].zero_()
-        return StagingArena(tensor)
+        tensor = None
+        if pooled:
+            with self._arena_lock:
+                for i, t in enumerate(self._arena_free):
+                    if t.numel() == nbytes:
+                        tensor = self._arena_free.pop(i)
+                        break
+        if tensor is None:
+            tensor = torch.empty(nbytes, dtype=torch.uint8,
+                                 pin_memory=get_device().type == "cuda")
+        tensor[zero_from:].zero_()
+        return StagingArena(tensor, nbytes if payload_bytes is None
+                            else payload_bytes, self if pooled else None)
+
+    def _return_arena(self, arena: StagingArena) -> None:
+        tensor, arena.tensor, arena.buf = arena.tensor, None, None
+        if tensor is None:
+            return
+        with self._arena_lock:
+            if len(self._arena_free) < ARENA_POOL_MAX:
+                self._arena_free.append(tensor)
 
     def submit(self, chan: PipelineChannel, arr: np.ndarray,
                cache=None, qos: str | None = None,
@@ -668,10 +791,19 @@ class EcDevicePipeline:
             out["devices"] = {str(l.index): l.dump()
                               for l in ds.lanes} if ds else {}
             out["active_devices"] = len(ds.active()) if ds else 0
+            mp = self._mesh
+            # which lanes the mesh plane spans and how dp x ls map
+            # onto them
+            out["mesh"] = ({"dp": mp.n_dp, "ls": mp.n_ls,
+                            "lanes": list(mp.lane_indices),
+                            "devices": [str(d) for d in mp.devices]}
+                           if mp is not None else None)
         out["depth"] = self.depth
         out["device_shards"] = self.device_shards or "all"
         out["scrub_weight"] = self.scrub_weight
         out["cost_aware"] = self.cost_aware
+        out["mesh_min_bytes"] = self.mesh_min_bytes
+        out["device_mesh"] = self.device_mesh
         out["qos_cost_unit"] = self.qos_cost_unit
         d = out["dispatches"]
         out["mean_batch_size"] = (out["stripes"] / d) if d else 0.0
@@ -893,6 +1025,11 @@ class EcDevicePipeline:
         lane.quarantine_reason = reason
         lane.injected = injected
         self._c["quarantines"] += 1
+        # a mesh plane spanning this lane is gone with it: later
+        # mega-batches rebuild one from the survivors
+        if self._mesh is not None and \
+                lane.index in self._mesh.lane_indices:
+            self._mesh = None
         # the card is in an unknown state: its cache entries must never
         # serve again (redrain re-uploads from host)
         hbm_cache.get().drop_lane(lane.index)
@@ -1028,6 +1165,9 @@ class EcDevicePipeline:
             if self._stalled:
                 self._fail_stalled(chan, items)
                 return
+            if self._mesh_eligible(chan, items, nbytes) and \
+                    self._dispatch_mesh(chan, items):
+                return
             bounds = None
             if hbm_cache.get().capacity > 0 and \
                     any(it.cache is not None for it in items):
@@ -1116,6 +1256,170 @@ class EcDevicePipeline:
                 lane.stage_q.append(staged)
                 self._inflight_cv.notify_all()
 
+    # -- mesh dispatch (one batch across the plane's devices) --------------
+
+    def _mesh_eligible(self, chan: PipelineChannel, items: list,
+                       nbytes: int) -> bool:
+        """Mesh mode is chosen when the channel has a mesh entry, the
+        coalesced batch reaches a single lane's budget, and no item fell
+        off the mesh before (such a batch finishes on row splits)."""
+        return (chan.mesh_fn is not None and self.mesh_min_bytes > 0
+                and nbytes >= self.mesh_min_bytes
+                and not any(it.no_mesh for it in items))
+
+    @staticmethod
+    def _parse_mesh_spec(spec: str, avail: int) -> tuple | None:
+        """osd_ec_device_mesh -> (n_dp, n_ls): "auto" spans every active
+        lane on the chunk-length axis, an integer caps the member count,
+        "AxB" lays out dp x ls (None when `avail` lanes cannot)."""
+        s = str(spec or "auto").strip().lower()
+        if "x" in s:
+            try:
+                a, b = s.split("x", 1)
+                n_dp, n_ls = max(1, int(a)), max(1, int(b))
+            except ValueError:
+                return None
+            if n_dp * n_ls > avail:
+                return None
+            return n_dp, n_ls
+        if s.isdigit():
+            n = min(int(s), avail)
+            return (1, n) if n >= 2 else None
+        return 1, avail
+
+    def _mesh_plane(self) -> _MeshPlane | None:
+        """The current mesh plane, built from the active lanes when it
+        is first needed (at least two live lanes).  Injected per-lane
+        faults are rolled on every member here, at placement: a hit
+        quarantines that lane and drops the plane, and the dispatch
+        falls through to row splits on the survivors."""
+        now = time.monotonic()
+        fs = faults.get()
+        with self._lock:
+            plane = self._mesh
+            if plane is None:
+                ds = self._devset
+                if ds is None:
+                    return None
+                lanes = [l for l in ds.lanes
+                         if not l.quarantined and not l.stuck(now)]
+                if len(lanes) < 2:
+                    return None
+                parsed = self._parse_mesh_spec(self.device_mesh,
+                                               len(lanes))
+                if parsed is None or parsed[0] * parsed[1] < 2:
+                    return None
+                n_dp, n_ls = parsed
+                plane = _MeshPlane(lanes[: n_dp * n_ls], n_dp, n_ls)
+                self._mesh = plane
+            for lane in plane.lanes:
+                if lane.quarantined or fs.tpu_error(device=lane.index):
+                    if not lane.quarantined:
+                        self._quarantine_locked(
+                            lane, "injected device error", injected=True)
+                        self._c["device_errors"] += 1
+                        lane.errors += 1
+                    self._c["mesh_degrades"] += 1
+                    self._mesh = None
+                    return None
+        return plane
+
+    def _dispatch_mesh(self, chan: PipelineChannel, items: list) -> bool:
+        """Serve one coalesced batch across the mesh plane.  True when
+        it was handled (served, or requeued off the mesh by a failure);
+        False to fall through to row-split placement (no plane, the
+        mesh runner still warming up, or a member fault at placement).
+        Runs inline on the dispatcher thread: the dispatch IS the
+        backpressure that coalesces the queue behind it."""
+        plane = self._mesh_plane()
+        if plane is None:
+            return False
+        batch = _cat_items(items)
+        arena = items[0].arena if len(items) == 1 else None
+        donate = arena is not None and arena.pooled and \
+            items[0].cache is None
+        keep = hbm_cache.get().capacity > 0 and \
+            any(it.cache is not None for it in items)
+        t0 = time.perf_counter()
+        t_m0 = time.monotonic()
+        try:
+            res = chan.mesh_fn(batch, plane, donate=donate,
+                               keep_resident=keep)
+        except Exception as e:
+            self._mesh_failed(chan, items, e)
+            return True
+        if res is None:
+            return False
+        outs, resident = res
+        secs = max(time.perf_counter() - t0, 1e-9)
+        t_m1 = time.monotonic()
+        name = f"mesh {plane.n_dp}x{plane.n_ls} lanes " \
+               f"{list(plane.lane_indices)}"
+        for it in items:
+            # upload, kernels and readback run inline: one window
+            it.ph["issue"] = t_m0
+            it.ph["collect0"] = t_m1
+            it.ph["done"] = t_m1
+            it.fut.ec_lane = name
+        outs = tuple(np.asarray(o) for o in outs)
+        with self._lock:
+            self._c["dispatches"] += 1
+            self._c["dev_dispatches"] += 1
+            self._c["mesh_dispatches"] += 1
+            self._c["bytes_h2d"] += batch.nbytes
+            self._c["bytes_d2h"] += sum(int(o.nbytes) for o in outs)
+            if arena is not None and arena.pooled:
+                # the upload from the arena WAS the staging copy
+                # (donated, or kept resident for the cache): ec.stage
+                # retires for this write
+                arena.consumed = True
+                if donate:
+                    self._c["arena_donations"] += 1
+        try:
+            chan.record("dev", batch.nbytes, secs, len(plane.lanes))
+        except Exception:
+            pass
+        if resident is not None:
+            self._stage_mesh_cache(items, plane, outs, resident)
+        self._resolve(items, "dev", outs)
+        return True
+
+    def _mesh_failed(self, chan: PipelineChannel, items: list,
+                     e: Exception) -> None:
+        """A mesh computation failed.  The error is not pinned on one
+        lane, so none quarantines here: the plane drops and the batch
+        requeues latched off the mesh, so row splits on the device
+        lanes serve it (a lane that is really bad then fails its part
+        and quarantines through the single-lane ladder)."""
+        with self._lock:
+            self._c["device_errors"] += 1
+            self._c["mesh_degrades"] += 1
+            self._mesh = None
+            for it in items:
+                it.no_mesh = True
+            self._requeue_locked(chan, items)
+        from ..utils.dout import DoutLogger
+        DoutLogger("ops", "ec-pipeline").warn(
+            "EC mesh dispatch failed (%s: %s): degrading the batch to "
+            "row splits on the lanes", type(e).__name__, e)
+
+    @staticmethod
+    def _stage_mesh_cache(items: list, plane: _MeshPlane, outs: tuple,
+                          resident: tuple) -> None:
+        """Mesh-resident cache entries: each tagged item's rows of the
+        members' inputs and parity, pinned to every member lane (a
+        quarantine of any one drops the entry) with the chunk pad."""
+        dev_data, dev_parity, pad = resident
+        off = 0
+        for it in items:
+            if it.cache is not None:
+                hbm_cache.get().stage(
+                    it.cache, plane.lane_indices,
+                    dev_data.rows(off, off + it.n),
+                    dev_parity.rows(off, off + it.n),
+                    outs[1][off: off + it.n].copy(), pad=pad)
+            off += it.n
+
     # -- stagers (one thread per lane: the H2D half of the plane) ----------
 
     def _stage_loop(self, lane: _Lane) -> None:
@@ -1201,6 +1505,11 @@ class EcDevicePipeline:
                                                  pin_memory=True)
                     dev[off:].copy_(lane.zeros[:pad].view(dev[off:].shape),
                                     non_blocking=True)
+                # a pooled arena may be handed out again only after this
+                ev = torch.cuda.Event()
+                ev.record(lane.stream)
+                for it in staged.items:
+                    it.arena.upload_event = ev
                 with self._lock:
                     self._c["arena_uploads"] += 1
             else:
@@ -1444,6 +1753,13 @@ class EcDevicePipeline:
     def _resolve(items: list, path: str, outs: tuple) -> None:
         off = 0
         for it in items:
+            ar = it.arena
+            if ar is not None and not ar.consumed and not ar.noted:
+                # a pooled arena that no donated mesh upload subsumed
+                # (host, lane or row-split serve): its staging copy is a
+                # host copy after all, noted where a plain buffer's is
+                ar.noted = True
+                copyaudit.note("ec.stage", ar.payload_bytes)
             sl = tuple(o[off: off + it.n] for o in outs)
             off += it.n
             if not it.fut.done():
@@ -1479,6 +1795,8 @@ def configure(depth: int | None = None,
               split_min: int | None = None,
               cost_aware: bool | None = None,
               hbm_cache_bytes: int | None = None,
+              mesh_min_bytes: int | None = None,
+              device_mesh: str | None = None,
               qos_cost_unit: int | None = None) -> EcDevicePipeline:
     """Tune the shared pipeline (daemon startup applies its conf)."""
     p = get()
@@ -1496,6 +1814,12 @@ def configure(depth: int | None = None,
         p.cost_aware = bool(cost_aware)
     if hbm_cache_bytes is not None:
         hbm_cache.configure(hbm_cache_bytes)
+    if mesh_min_bytes is not None:
+        p.mesh_min_bytes = int(mesh_min_bytes)
+    if device_mesh is not None and device_mesh != p.device_mesh:
+        p.device_mesh = str(device_mesh)
+        with p._lock:
+            p._mesh = None      # a layout change rebuilds the plane
     if qos_cost_unit is not None:
         p.qos_cost_unit = max(0, int(qos_cost_unit))
     if device_shards is not _UNSET and \
@@ -1601,6 +1925,60 @@ def _warm_crc(size: int, shape: tuple, device) -> None:
                 _crc_warm_failed[key] = err
 
 
+# mesh scrub folds: one mega CRC batch with its row length split across
+# the mesh plane, the partials combined on the first member
+# (cuda_ec.make_mesh_crc_fn).  Warmed like the lane fns, per (size,
+# rows, plane); a cold key row-splits meanwhile, and a failed warm-up is
+# raised by every later mesh dispatch of that key (the dispatch then
+# degrades the batch to row splits).
+_crc_mesh_fns: dict = {}
+_crc_mesh_warming: set = set()
+_crc_mesh_failed: dict = {}
+
+
+def _crc_mesh_fn(size: int):
+    def mesh_fn(batch, plane, donate=False, keep_resident=False):
+        key = (size, batch.shape[0], plane.key())
+        with _crc_lock:
+            fn = _crc_mesh_fns.get(key)
+            if fn is None:
+                err = _crc_mesh_failed.get(key)
+                if err is not None:
+                    raise RuntimeError(
+                        f"mesh scrub CRC warm-up at {key[:2]} failed: "
+                        f"{type(err).__name__}: {err}") from err
+                if key not in _crc_mesh_warming:
+                    _crc_mesh_warming.add(key)
+                    threading.Thread(
+                        target=_warm_crc_mesh, args=key, daemon=True,
+                        name="ec-crc-mesh-warm").start()
+                return None
+        return (fn(batch),), None
+
+    return mesh_fn
+
+
+def _warm_crc_mesh(size: int, B: int, plane_key: tuple) -> None:
+    from . import cuda_ec
+    key = (size, B, plane_key)
+    fn, err = None, None
+    try:
+        devices, n_dp, n_ls = plane_key
+        fn = cuda_ec.make_mesh_crc_fn(size, devices, n_dp, n_ls)
+        fn(np.zeros((B, size), dtype=np.uint8))
+    except Exception as e:
+        fn, err = None, e.with_traceback(None)
+    finally:
+        with _crc_lock:
+            _crc_mesh_warming.discard(key)
+            if fn is not None:
+                if len(_crc_mesh_fns) > 64:
+                    _crc_mesh_fns.clear()
+                _crc_mesh_fns[key] = fn
+            else:
+                _crc_mesh_failed[key] = err
+
+
 def crc_channel(size: int,
                 max_coalesce: int | None = None) -> PipelineChannel:
     """Shared channel computing CRC32C(seed 0) per row of (B, size)
@@ -1624,7 +2002,8 @@ def crc_channel(size: int,
             chan = PipelineChannel(
                 key=("crc", size), host_fn=host_fn,
                 device_fn=_crc_device_fn(size), route=route,
-                max_coalesce=max_coalesce, qos_class="scrub")
+                max_coalesce=max_coalesce, qos_class="scrub",
+                mesh_fn=_crc_mesh_fn(size))
             _crc_channels[size] = chan
         elif max_coalesce is not None:
             # several daemons share this in-process registry: honor

@@ -44,6 +44,7 @@ from .messages import (MOSDECSubOpRead, MOSDECSubOpReadReply,
                        MWatchNotifyAck, sender_id)
 from .osdmap import OSDMap, PgId
 from .pg import HINFO_KEY, PG, VER_KEY
+from .pglog import _parse_ev
 
 
 from .recovery_svc import RecoveryService  # noqa: E402
@@ -140,9 +141,7 @@ class OSDDaemon(Dispatcher, RecoveryService, ScrubService):
 
         self._ec_codecs: dict[str, object] = {}
         # the shared cross-op EC device pipeline (process-wide: every
-        # producer feeding it is what makes batches mega).  The mesh
-        # options (osd_ec_mesh_min_bytes, osd_ec_device_mesh) stay valid
-        # conf keys, but this pipeline has no mesh mode to hand them to.
+        # producer feeding it is what makes batches mega)
         from ..ops import pipeline as ec_pipeline
         shards_conf = str(self.conf.osd_ec_device_shards).strip()
         ec_pipeline.configure(
@@ -156,6 +155,8 @@ class OSDDaemon(Dispatcher, RecoveryService, ScrubService):
                 self.conf.osd_ec_pipeline_scrub_weight),
             cost_aware=bool(self.conf.osd_ec_cost_aware_placement),
             hbm_cache_bytes=int(self.conf.osd_ec_hbm_cache_bytes),
+            mesh_min_bytes=int(self.conf.osd_ec_mesh_min_bytes),
+            device_mesh=str(self.conf.osd_ec_device_mesh),
             qos_cost_unit=int(self.conf.osd_qos_cost_bytes_unit))
         self._rpc_tid = itertools.count(1)
         self._rpc: dict = {}
@@ -1350,15 +1351,24 @@ class OSDDaemon(Dispatcher, RecoveryService, ScrubService):
             reply.rpc_tid = getattr(msg, "rpc_tid", None)
             self.send_osd_reply(conn, reply)
         elif msg.op == "ec_omap":
+            # the omap, and for a rebuild the user xattrs and the
+            # version of the shard file they came from
             shard = int(getattr(msg, "shard", 0) or 0)
+            name = pg._ec_local_shard(msg.oid, shard)
             try:
-                omap = self.store.omap_get(
-                    pg.cid, pg._ec_local_shard(msg.oid, shard))
+                omap = self.store.omap_get(pg.cid, name)
             except StoreError:
                 omap = {}
+            try:
+                attrs = self.store.getattrs(pg.cid, name)
+            except StoreError:
+                attrs = {}
+            ver = _parse_ev(attrs[VER_KEY]) if VER_KEY in attrs else None
             reply = MPGInfo(op="info", pgid=msg.pgid,
                             epoch=self.osdmap.epoch,
-                            info={"omap": omap})
+                            info={"omap": omap, "ver": ver,
+                                  "xattrs": {k: v for k, v in attrs.items()
+                                             if k.startswith("u.")}})
             reply.rpc_tid = getattr(msg, "rpc_tid", None)
             self.send_osd_reply(conn, reply)
         elif msg.op == "shard_scan":

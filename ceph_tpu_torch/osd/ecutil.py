@@ -101,11 +101,12 @@ class EncodeHandle:
     sub-op messages (out-of-band CTM2 segments) and store applies
     without ever becoming per-shard bytes objects."""
 
-    __slots__ = ("_get", "_get_parts", "_src")
+    __slots__ = ("_get", "_get_parts", "_arena", "_src")
 
-    def __init__(self, get, get_parts=None, src=None):
+    def __init__(self, get, get_parts=None, src=None, arena=None):
         self._get = get
         self._get_parts = get_parts
+        self._arena = arena
         self._src = src             # codec handle: phase stamps source
 
     def result(self, timeout=None) -> tuple[list[memoryview], np.ndarray]:
@@ -122,6 +123,11 @@ class EncodeHandle:
             allc, stripe_crcs = self._get(timeout)
             S, km, L = allc.shape
             shards = np.ascontiguousarray(allc.transpose(1, 0, 2))
+        # the shard fan-out above was the arena's last reader: a pooled
+        # one goes back for the next mega-write
+        arena, self._arena = self._arena, None
+        if arena is not None:
+            arena.release()
         # op tracing: turn the pipeline's phase stamps (coalesce wait,
         # H2D staging, device compute, D2H — or the host drain) into
         # spans on whatever op this thread is executing; free when
@@ -158,7 +164,11 @@ def encode_object_async(codec, sinfo: StripeInfo, payload: bytes,
     audited `ec.stage` site).  A stripe batch of at least
     ops.pipeline.ARENA_MIN_BYTES stages into a pinned arena from the
     pipeline instead (page-locked memory on a card), which the pipeline
-    uploads from as it stands."""
+    uploads from as it stands.  A mesh-sized batch (conf
+    osd_ec_mesh_min_bytes and up) takes a pooled arena, released after
+    the shard fan-out: a mesh dispatch that donates it makes the
+    staging copy the upload itself, and the pipeline notes `ec.stage`
+    for any other serve."""
     plen = len(payload)
     S = sinfo.stripe_count(plen)
     L = sinfo.chunk_size
@@ -166,7 +176,7 @@ def encode_object_async(codec, sinfo: StripeInfo, payload: bytes,
     arena = None
     if hasattr(codec, "encode_stripes_with_crcs_async"):
         from ..ops import pipeline as ec_pipeline
-        arena = ec_pipeline.EcDevicePipeline.checkout_arena(nbytes, plen)
+        arena = ec_pipeline.get().checkout_arena(nbytes, plen)
     buf = arena.buf if arena is not None \
         else np.zeros(nbytes, dtype=np.uint8)
     off = 0
@@ -174,17 +184,23 @@ def encode_object_async(codec, sinfo: StripeInfo, payload: bytes,
         n = len(seg)
         buf[off: off + n] = np.frombuffer(seg, dtype=np.uint8)
         off += n
-    copyaudit.note("ec.stage", plen)
+    if arena is None or not arena.pooled:
+        copyaudit.note("ec.stage", plen)
+        if arena is not None:
+            arena.noted = True
     stripes = buf.reshape(S, sinfo.k, L)
     if hasattr(codec, "encode_stripes_with_crcs_async"):
         try:
             handle = codec.encode_stripes_with_crcs_async(
                 stripes, cache=cache, qos=qos, arena=arena)
         except TypeError:   # non-pipeline codec: no cache/qos support
+            if arena is not None and not arena.noted:
+                arena.noted = True
+                copyaudit.note("ec.stage", plen)
             handle = codec.encode_stripes_with_crcs_async(stripes)
         parts = getattr(handle, "result_parts", None)
         return EncodeHandle(lambda t: handle.result(t),
-                            get_parts=parts, src=handle)
+                            get_parts=parts, src=handle, arena=arena)
     out = codec.encode_stripes_with_crcs(stripes)
     return EncodeHandle(lambda t: out)
 

@@ -23,6 +23,7 @@ from .osdmap import PgId
 from ..crush.map import ITEM_NONE
 from .pg import (HINFO_KEY, PG, SNAPSET_KEY, VER_KEY,
                  WHITEOUT_KEY, shard_oid)
+from .pglog import _parse_ev
 
 
 class RecoveryService:
@@ -1254,8 +1255,55 @@ class RecoveryService:
                 self.log.warn("cannot rebuild %s/%s: undecodable",
                               pgid, oid)
             return False
-        self._ec_push_shards(pg, oid, need, missing, data)
-        return True
+        if self._ec_push_shards(pg, oid, need, missing, data):
+            return True
+        if retry and attempt < 6:
+            # no surviving shard answered with the object's user
+            # xattrs and omap: a rebuilt shard without them would read
+            # empty once it is the one reads go to
+            self.clock.timer(
+                0.3 * (attempt + 1),
+                lambda: self.queue_ec_rebuild(
+                    pgid, oid, need, missing, attempt + 1))
+        return False
+
+    def _ec_user_meta(self, pg: PG, oid: str, version,
+                      exclude: set) -> tuple[dict, dict] | None:
+        """The user xattrs (``u.*``) and the omap of a surviving shard
+        of `oid` at `version` — what a rebuilt shard must carry, since
+        every shard holds them (backend_ec's sub-write).  A shard file
+        this OSD holds first, then the holders of the other shards in
+        acting order; `exclude` names the shards being rebuilt.  None
+        when no surviving shard answered at that version."""
+        version = tuple(version)
+        for shard in range(len(pg.acting)):
+            if shard in exclude:
+                continue
+            name = shard_oid(oid, shard)
+            try:
+                if _parse_ev(self.store.getattr(pg.cid, name,
+                                                VER_KEY)) != version:
+                    continue
+                attrs = self.store.getattrs(pg.cid, name)
+                omap = self.store.omap_get(pg.cid, name)
+            except StoreError:
+                continue
+            return ({k: v for k, v in attrs.items()
+                     if k.startswith("u.")}, dict(omap))
+        for shard, osd_id in enumerate(pg.acting):
+            if shard in exclude or osd_id in (ITEM_NONE, self.whoami):
+                continue
+            reply = self._call(osd_id, MPGInfo(
+                op="ec_omap", pgid=str(pg.pgid), oid=oid, shard=shard,
+                epoch=self.osdmap.epoch), timeout=5.0)
+            if reply is None or reply.info.get("unknown"):
+                continue
+            ver = reply.info.get("ver")
+            if ver is None or tuple(ver) != version:
+                continue
+            return (dict(reply.info.get("xattrs", {})),
+                    dict(reply.info.get("omap", {})))
+        return None
 
     def _ec_push_shards(self, pg: PG, oid: str, version,
                         missing: list[tuple[int, int]],
@@ -1269,7 +1317,9 @@ class RecoveryService:
         cached per-stripe chunk CRCs — no re-encode, no H2D.  A
         cache-trusting caller passes data=None (the payload itself
         never crosses the boundary); returns False only then, when
-        the entry vanished before its rows could be fetched."""
+        the entry vanished before its rows could be fetched, and for
+        any caller when no surviving shard gave the object's user
+        xattrs and omap, which every rebuilt shard carries."""
         from ..ops import hbm_cache
         from . import ecutil
         codec = pg._ec_codec()
@@ -1316,6 +1366,13 @@ class RecoveryService:
             # these shards would RESURRECT a removed object (absence
             # must not read as version (0,0) and pass the gate)
             return True
+        meta = self._ec_user_meta(pg, oid, version,
+                                  {s for s, _o in missing})
+        if meta is None:
+            self.log.warn("rebuild of %s/%s: no surviving shard gave "
+                          "its xattrs and omap", pg.pgid, oid)
+            return False
+        user_xattrs, omap = meta
         for shard, osd_id in missing:
             hinfo = denc.dumps({
                 "size": size,
@@ -1335,6 +1392,10 @@ class RecoveryService:
                 txn.write(pg.cid, soid, 0, payload)
                 txn.setattr(pg.cid, soid, HINFO_KEY, hinfo)
                 txn.setattr(pg.cid, soid, VER_KEY, ver)
+                for key, val in user_xattrs.items():
+                    txn.setattr(pg.cid, soid, key, val)
+                if omap:
+                    txn.omap_setkeys(pg.cid, soid, omap)
                 with pg.lock:
                     cur2 = pg.pglog.objects.get(oid)
                     if cur2 is None or cur2 > tuple(version):
@@ -1353,7 +1414,8 @@ class RecoveryService:
                 self.send_osd(osd_id, MPGPush(
                     pgid=str(pg.pgid), oid=oid, version=version,
                     data=payload,
-                    xattrs={HINFO_KEY: hinfo, VER_KEY: ver}, omap={},
+                    xattrs={HINFO_KEY: hinfo, VER_KEY: ver,
+                            **user_xattrs}, omap=omap,
                     shard=shard, epoch=self.osdmap.epoch))
         return True
 

@@ -1,7 +1,18 @@
-"""Command-line tools of the PyTorch port: the offline pg log dump
-(pglog_dump, which the OSD's admin socket also serves), the rbd tool
-(rbd_cli), the seeded mixed-door load harness (loadgen) and the kernel
-timing probe (kernel_probe, run on the card)."""
+"""Command-line and offline tools of the PyTorch port (tools/ analog):
+the rados, ceph and cephfs-shell CLIs (rados_cli, ceph_cli,
+cephfs_shell), crushtool, osdmaptool, monmaptool, authtool, the
+objectstore tool, the offline pg log dump (pglog_dump, which the OSD's
+admin socket also serves), the Chrome-trace renderer of op dumps
+(trace_dump), the rbd tool (rbd_cli), the seeded mixed-door load
+harness (loadgen), the static copy and counter audits (copy_audit,
+counter_audit) and the kernel timing probe (kernel_probe, run on the
+card).  The CLIs run against a port cluster's conf file:
+
+    python -m ceph_tpu_torch.tools.rados_cli -c ceph.conf lspools
+
+Their OSD-side work runs on the card; a CPU run calls
+``ceph_tpu_torch.set_device("cpu")`` first, then the tool's ``main``.
+"""
 
 from __future__ import annotations
 

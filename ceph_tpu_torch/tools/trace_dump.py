@@ -1,0 +1,184 @@
+"""trace-dump: merge per-daemon op dumps into Chrome-trace JSON.
+
+The op tracing plane leaves per-daemon documents behind — flight
+recorder incident directories (``<seq>_<reason>/<daemon>.json``), or
+raw ``dump_historic_ops`` / ``dump_ops_in_flight`` output saved from
+the admin socket.  This tool merges them into ONE Chrome trace event
+array (the ``chrome://tracing`` / Perfetto legacy JSON format), so a
+p999 outlier or a lost-ack incident reads as a timeline: each daemon
+is a process row, each trace id a thread row, each span a complete
+("ph": "X") slice, each op event an instant marker.
+
+Span endpoints ride the process-wide ``time.monotonic()`` clock (all
+daemons in one test process share it), so cross-daemon rows line up
+without offset fixups: a client op's `queue`/`execute` on the primary
+nests visually over the correlated `sub_op` rows on its replicas —
+the same trace id groups them.
+
+    python -m ceph_tpu_torch.tools.trace_dump --dump-dir <incident-dir> \
+        [--out trace.json]
+    python -m ceph_tpu_torch.tools.trace_dump --dump osd.0.json osd.1.json
+
+Output: {"traceEvents": [...], "displayTimeUnit": "ms"} — loadable as
+is by Perfetto's legacy importer.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+
+def _iter_ops(doc) -> list[dict]:
+    """Every op document reachable in one per-daemon dump: accepts a
+    flight-recorder daemon doc ({"ops_in_flight": ..., "historic_ops":
+    ...}), a bare tracker dump ({"num_ops": N, "ops": [...]}), or a
+    raw op list."""
+    if isinstance(doc, list):
+        return [op for op in doc if isinstance(op, dict)]
+    if not isinstance(doc, dict):
+        return []
+    ops: list[dict] = []
+    if isinstance(doc.get("ops"), list):
+        ops.extend(op for op in doc["ops"] if isinstance(op, dict))
+    for key in ("ops_in_flight", "historic_ops", "historic_slow_ops"):
+        sub = doc.get(key)
+        if isinstance(sub, dict) and isinstance(sub.get("ops"), list):
+            ops.extend(op for op in sub["ops"]
+                       if isinstance(op, dict))
+    return ops
+
+
+def _op_key(op: dict) -> tuple:
+    """Dedup key: the same op shows up in both the historic and the
+    slow ring (and across incident snapshots)."""
+    return (op.get("daemon", ""), op.get("trace_id", ""),
+            op.get("description", ""), op.get("mstart", 0.0))
+
+
+def chrome_trace(daemon_docs: dict[str, object]) -> dict:
+    """Merge {daemon_name: dump document} into a Chrome trace doc.
+
+    pids are daemons, tids are trace ids (falling back to the op
+    description for untraced internals); numeric ids carry
+    process_name / thread_name metadata events so the UI shows the
+    real names.  Timestamps are microseconds on the shared monotonic
+    timebase, rebased to the earliest op so traces start near 0."""
+    events: list[dict] = []
+    pids: dict[str, int] = {}
+    tids: dict[tuple, int] = {}
+    seen: set[tuple] = set()
+    ops: list[tuple[str, dict]] = []
+    for daemon, doc in sorted(daemon_docs.items()):
+        for op in _iter_ops(doc):
+            key = _op_key(op)
+            if key in seen:
+                continue
+            seen.add(key)
+            ops.append((op.get("daemon") or daemon, op))
+    if not ops:
+        return {"traceEvents": [], "displayTimeUnit": "ms"}
+    base = min(op.get("mstart", 0.0) for _d, op in ops)
+
+    def us(t: float) -> float:
+        return round((t - base) * 1e6, 1)
+
+    for daemon, op in ops:
+        if daemon not in pids:
+            pids[daemon] = len(pids) + 1
+            events.append({"ph": "M", "name": "process_name",
+                           "pid": pids[daemon], "tid": 0,
+                           "args": {"name": daemon}})
+        pid = pids[daemon]
+        lane = op.get("trace_id") or op.get("description", "?")
+        tkey = (daemon, lane)
+        if tkey not in tids:
+            tids[tkey] = len(tids) + 1
+            events.append({"ph": "M", "name": "thread_name",
+                           "pid": pid, "tid": tids[tkey],
+                           "args": {"name": lane}})
+        tid = tids[tkey]
+        mstart = op.get("mstart", base)
+        dur = max(float(op.get("duration", 0.0)), 0.0)
+        events.append({
+            "ph": "X", "name": op.get("description", "op"),
+            "cat": op.get("kind", "op"), "pid": pid, "tid": tid,
+            "ts": us(mstart), "dur": round(dur * 1e6, 1),
+            "args": {"trace_id": op.get("trace_id", ""),
+                     "age": op.get("age")}})
+        for sp in op.get("spans", []):
+            t0, t1 = float(sp.get("t0", mstart)), float(
+                sp.get("t1", mstart))
+            events.append({
+                "ph": "X", "name": sp.get("name", "span"),
+                "cat": "span", "pid": pid, "tid": tid,
+                "ts": us(t0), "dur": round(max(t1 - t0, 0.0) * 1e6, 1),
+                "args": dict(sp.get("args") or {})})
+        for ev in op.get("events", []):
+            mt = ev.get("mtime")
+            if mt is None:
+                continue
+            events.append({
+                "ph": "i", "s": "t", "name": ev.get("event", "?"),
+                "cat": "event", "pid": pid, "tid": tid,
+                "ts": us(float(mt))})
+    events.sort(key=lambda e: (e["ph"] != "M", e.get("ts", 0.0)))
+    return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+
+def load_dump_dir(path: str) -> dict[str, object]:
+    """Read every ``*.json`` in a flight-recorder incident directory
+    (manifest/extra files are carried along but hold no ops)."""
+    docs: dict[str, object] = {}
+    for name in sorted(os.listdir(path)):
+        if not name.endswith(".json"):
+            continue
+        with open(os.path.join(path, name), encoding="utf-8") as f:
+            try:
+                docs[name[:-5]] = json.load(f)
+            except ValueError:
+                continue
+    return docs
+
+
+def main(argv=None, out=sys.stdout) -> int:
+    parser = argparse.ArgumentParser(prog="trace-dump")
+    parser.add_argument("--dump-dir",
+                        help="flight-recorder incident directory "
+                             "(one <daemon>.json per daemon)")
+    parser.add_argument("--dump", nargs="*", default=[],
+                        help="individual dump files (saved "
+                             "dump_historic_ops / dump_ops_in_flight "
+                             "output)")
+    parser.add_argument("--out", help="write here instead of stdout")
+    args = parser.parse_args(argv)
+    if not args.dump_dir and not args.dump:
+        print("error: need --dump-dir or --dump", file=sys.stderr)
+        return 2
+    docs: dict[str, object] = {}
+    try:
+        if args.dump_dir:
+            docs.update(load_dump_dir(args.dump_dir))
+        for path in args.dump:
+            with open(path, encoding="utf-8") as f:
+                docs[os.path.basename(path).rsplit(".", 1)[0]] = \
+                    json.load(f)
+    except OSError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    doc = chrome_trace(docs)
+    text = json.dumps(doc, indent=1)
+    if args.out:
+        with open(args.out, "w", encoding="utf-8") as f:
+            f.write(text)
+        print(f"wrote {len(doc['traceEvents'])} events to {args.out}",
+              file=sys.stderr)
+    else:
+        print(text, file=out)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -90,7 +90,31 @@ windows:
      seed, killed; the tier evicted again and everything read again
      through the doors, at least one rebuild decode among them.
 
-In each window of phases 9 and 10 every kernel entry point launched
+Phase 11 holds the mesh functions (ops/cuda_ec.py: one batch's chunk
+length split across a dp x ls plane, each member's slice through the
+kernels above on its own stream) with every member on this card, at
+config #2: make_mesh_encode_crc_fn at 1x2, 1x3 (L does not divide by 3:
+front pad, slice CRCs advanced and XORed) and 2x2 byte for byte against
+the single-device fused pass, whose sample stripes match the host
+oracle, the resident tensors against the inputs and parity, and
+make_mesh_crc_fn at (352, 1 MiB), 1x2 and 1x3, against crc32c_rows; the
+launches of each call equal its members' slices plus the chain where it
+combines; each call's median host-clock ms beside the fused pass's.  The
+pipeline with mesh_min_bytes under one 128-stripe encode: with one card
+no plane forms (stats()["mesh"] None, no mesh dispatch) and the write
+serves bit-exact on the lane (with two or more cards it must ride the
+mesh, no degrade); a mesh-sized ecutil write takes a pooled arena and
+returns it.  Then graft_entry.dryrun_multichip(8): 8 members sharing the
+cards, oracle-checked.
+
+Phase 12 drives the admin tools against a cluster of port daemons on
+the card (1 mon, 12 MemStore OSDs): ceph_cli sets a tpu k=8 m=3 profile
+and creates an EC pool on it; rados_cli puts and gets a seeded 16 MiB
+file byte for byte, then `bench 10 write -b 4194304 -t 8` and `seq`
+(MB/s printed, a sample of the bench objects read back); trace_dump
+renders the OSDs' op dumps as a Chrome trace with ec.* spans.
+
+In each window of phases 9, 10 and 12 every kernel entry point launched
 exactly once per device dispatch of its kind (pipeline.stats()
 dev_dispatches_enc/_dec/_crc), at least one device dispatch ran (except
 in phase 10's promote window: a read of an intact object may dispatch
@@ -1756,6 +1780,396 @@ def doors_windows(cluster, rng, cuda_ec, ec_pipeline, hbm_cache, native,
     return out
 
 
+# -- phase 11: the mesh functions and mode, and the dry run ----------------
+
+MESH_LAYOUTS = ((1, 2), (1, 3), (2, 2))  # (n_dp, n_ls), members on cuda:0
+MESH_CRC_LAYOUTS = ((1, 2), (1, 3))
+MESH_RUNS = 5
+MESH_SAMPLE = 2                  # stripes held against the host oracle
+MESH_PIPE_SHAPE = (128, K, 4096)  # one 128-stripe encode at the 4 KiB unit
+DRYRUN_MEMBERS = 8
+
+
+def mesh_launches(n: int, chain: bool, encode: bool = True) -> dict:
+    """Per mesh call: each member's slice through gf_encode_crc (encode)
+    or crc32c_segments (scrub fold), then crc32c_chain once on the first
+    member where it joins the members' segments, else once per member."""
+    return {"gf_encode": 0, "gf_encode_crc": n if encode else 0,
+            "crc32c_segments": 0 if encode else n,
+            "crc32c_chain": 1 if chain else n}
+
+
+def host_ms(fn, runs: int) -> float:
+    """Median host-clock ms of fn() (the mesh functions take host arrays
+    and return once their members are done)."""
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def np_err(a: np.ndarray, b: np.ndarray) -> int:
+    if a.shape != b.shape:
+        raise AssertionError(f"shape {a.shape} != {b.shape}")
+    return int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max())
+
+
+def mesh_members(n: int) -> list:
+    """n plane members, one card each while there are cards, sharing
+    them beyond that (all on cuda:0 on a one-card machine)."""
+    return [torch.device("cuda", j % torch.cuda.device_count())
+            for j in range(n)]
+
+
+def phase_mesh(rng, device, cuda_ec, ec_kernels, gf, registry, native,
+               crc_mod, ec_pipeline, ecutil, tally):
+    """The mesh encode and scrub fold with every member of the plane on
+    this card, against the single-device fused pass and crc32c_rows at
+    config #2 (launches per call counted); the pipeline's mesh mode with
+    the budget under one 128-stripe encode; the dry run of 8 members."""
+    from ceph_tpu_torch import graft_entry
+    from ceph_tpu_torch.utils import copyaudit
+
+    coding = gf.reed_sol_van_matrix(K, M)
+    S, L = B_MAIN, L_MAIN
+    pinned = torch.empty((S, K, L), dtype=torch.uint8, pin_memory=True)
+    batch = pinned.numpy()
+    batch[:] = rng.integers(0, 256, (S, K, L), dtype=np.uint8)
+    x = pinned.to(device)
+    single = cuda_ec.make_encode_crc_fn(coding, L)
+    ref_p, ref_c = single(x)
+    torch.cuda.synchronize()
+    ref_p = ref_p.cpu().numpy()
+    ref_c = ref_c.view(torch.int32).cpu().numpy().view(np.uint32)
+    o_allc, o_crcs = host_oracle(coding, batch[:MESH_SAMPLE], native,
+                                 crc_mod)
+    if not (np.array_equal(o_allc[:, K:], ref_p[:MESH_SAMPLE])
+            and np.array_equal(o_crcs, ref_c[:MESH_SAMPLE])):
+        raise AssertionError("single-device fused pass != host oracle")
+    single_ms = time_ms(single, [x] * TIMED_RUNS)["ms"]
+
+    p_host = torch.empty((S, M, L), dtype=torch.uint8, pin_memory=True)
+    c_host = torch.empty((S, K + M), dtype=torch.int32, pin_memory=True)
+
+    def single_host():
+        # the same transfers as a mesh call: pinned up, pinned down
+        p, c = single(pinned.to(device, non_blocking=True))
+        p_host.copy_(p, non_blocking=True)
+        c_host.copy_(c.view(torch.int32), non_blocking=True)
+        torch.cuda.synchronize()
+
+    single_host_ms = host_ms(single_host, MESH_RUNS)
+    del x
+    out = {"shape": [S, K, L], "tolerance": 0,
+           "single_ms": single_ms, "single_host_ms": single_host_ms,
+           "encode": [], "crc": []}
+    for dp, ls in MESH_LAYOUTS:
+        n = dp * ls
+        fn = cuda_ec.make_mesh_encode_crc_fn(coding, L, mesh_members(n),
+                                             dp, ls)
+        fn(batch)                       # streams and parameter blocks
+        _, Lp, pad = ec_kernels.mesh_geometry(L, ls)
+        chain = Lp % SEG == 0
+        p, c, res = counted(cuda_ec, tally, mesh_launches(n, chain),
+                            f"mesh encode {dp}x{ls}",
+                            lambda: fn(batch, keep_resident=True))
+        err = max(np_err(p, ref_p), np_err(c, ref_c))
+        dev_data, dev_parity, rpad = res
+        if rpad != pad or \
+                not np.array_equal(dev_data.to_host()[:S, :, pad:],
+                                   batch) or \
+                not np.array_equal(dev_parity.to_host()[:S, :, pad:], p):
+            raise AssertionError(f"mesh {dp}x{ls}: resident tensors are "
+                                 "not the inputs and parity")
+        del res, dev_data, dev_parity
+        if err:
+            raise AssertionError(f"mesh encode {dp}x{ls} != fused pass: "
+                                 f"{err}")
+        row = {"layout": [dp, ls],
+               "members": [str(d) for d in mesh_members(n)], "pad": pad,
+               "chain": chain, "max_abs_err": err,
+               "launches": mesh_launches(n, chain),
+               "ms": host_ms(lambda: fn(batch), MESH_RUNS)}
+        out["encode"].append(row)
+        emit("mesh_encode", **row, single_ms=single_ms,
+             single_host_ms=single_host_ms)
+
+    rows_pinned = torch.empty((S * (K + M), L), dtype=torch.uint8,
+                              pin_memory=True)
+    rows_np = rows_pinned.numpy()
+    rows_np.reshape(S, K + M, L)[:] = np.concatenate([batch, ref_p], axis=1)
+    rows_dev = rows_pinned.to(device)
+    ref_r = cuda_ec.crc32c_rows(rows_dev)
+    torch.cuda.synchronize()
+    ref_r = ref_r.view(torch.int32).cpu().numpy().view(np.uint32)
+    crc_ms = time_ms(cuda_ec.crc32c_rows, [rows_dev] * TIMED_RUNS)["ms"]
+    crc_host_ms = host_ms(lambda: cuda_ec.crc32c_rows(rows_pinned.to(
+        device, non_blocking=True)).view(torch.int32).cpu(), MESH_RUNS)
+    del rows_dev
+    if not np.array_equal(ref_r, ref_c.reshape(-1)):
+        raise AssertionError("crc32c_rows != the fused pass's CRCs")
+    for dp, ls in MESH_CRC_LAYOUTS:
+        n = dp * ls
+        fn = cuda_ec.make_mesh_crc_fn(L, mesh_members(n), dp, ls)
+        fn(rows_np)
+        _, Lp, pad = ec_kernels.mesh_geometry(L, ls)
+        chain = Lp % SEG == 0
+        got = counted(cuda_ec, tally, mesh_launches(n, chain, False),
+                      f"mesh crc {dp}x{ls}", lambda: fn(rows_np))
+        err = np_err(got, ref_r)
+        if err:
+            raise AssertionError(f"mesh crc {dp}x{ls} != crc32c_rows")
+        row = {"layout": [dp, ls],
+               "members": [str(d) for d in mesh_members(n)],
+               "rows": rows_np.shape[0],
+               "pad": pad, "chain": chain, "max_abs_err": err,
+               "launches": mesh_launches(n, chain, False),
+               "ms": host_ms(lambda: fn(rows_np), MESH_RUNS)}
+        out["crc"].append(row)
+        emit("mesh_crc", **row, single_ms=crc_ms,
+             single_host_ms=crc_host_ms)
+    del pinned, batch, rows_pinned, rows_np, p_host, c_host
+
+    # the pipeline: one 128-stripe encode over the mesh budget
+    codec = registry.factory("tpu", {"k": str(K), "m": str(M),
+                                     "technique": "reed_sol_van",
+                                     "host_cutover": "1"})
+    stripes = rng.integers(0, 256, MESH_PIPE_SHAPE, dtype=np.uint8)
+    wait_warm(lambda: codec.backend.fused_fn_if_ready(
+        codec.coding_matrix, MESH_PIPE_SHAPE, device), "128-stripe encode")
+    pipe = ec_pipeline.get()
+    prev = pipe.mesh_min_bytes
+    ec_pipeline.configure(mesh_min_bytes=stripes.nbytes // 4)
+    cards = torch.cuda.device_count()
+    try:
+        before = pipe.stats()
+        if cards >= 2:
+            cuda_ec.reset_launches()
+            t0 = time.monotonic()
+            while pipe.stats()["mesh_dispatches"] == \
+                    before["mesh_dispatches"]:
+                if time.monotonic() - t0 > WARM_TIMEOUT_S:
+                    raise TimeoutError("no mesh dispatch on "
+                                       f"{cards} cards")
+                allc, crcs = codec.encode_stripes_with_crcs(stripes)
+            for name, k in cuda_ec.launch_counts().items():
+                tally[name] += k
+        else:
+            allc, crcs = counted(
+                cuda_ec, tally, ENCODE_LAUNCHES,
+                "pipeline encode over the mesh budget",
+                lambda: codec.encode_stripes_with_crcs(stripes))
+        ref_allc, ref_crcs = host_oracle(codec.coding_matrix, stripes,
+                                         native, crc_mod)
+        if not (np.array_equal(allc, ref_allc)
+                and np.array_equal(crcs, ref_crcs)):
+            raise AssertionError("encode over the mesh budget != host")
+        st = pipe.stats()
+        meshed = st["mesh_dispatches"] - before["mesh_dispatches"]
+        degrades = st["mesh_degrades"] - before["mesh_degrades"]
+        if cards >= 2 and (meshed < 1 or degrades):
+            raise AssertionError(f"mesh on {cards} cards: {meshed} "
+                                 f"dispatches, {degrades} degrades")
+        if cards < 2 and (st["mesh"] is not None or meshed):
+            raise AssertionError("a mesh plane formed on one card")
+        # a mesh-sized object write takes a pooled arena and gives it
+        # back after the shard fan-out, its staging copy noted
+        sinfo = ecutil.StripeInfo(K, MESH_PIPE_SHAPE[2])
+        payload = stripes.tobytes()
+        free0 = len(pipe._arena_free)
+        stage0 = copyaudit.snapshot()["sites"].get(
+            "ec.stage", {"copies": 0})["copies"]
+        if cards >= 2:
+            shards, shard_crcs = ecutil.encode_object(codec, sinfo, payload)
+        else:
+            shards, shard_crcs = counted(
+                cuda_ec, tally, ENCODE_LAUNCHES, "ecutil mesh-sized write",
+                lambda: ecutil.encode_object(codec, sinfo, payload))
+        for c, shard in enumerate(shards):
+            if bytes(shard) != ref_allc[:, c].tobytes() or \
+                    shard_crcs[c] != crc_mod.crc32c(0, bytes(shard)):
+                raise AssertionError(f"mesh-sized write: shard {c} wrong")
+        stage1 = copyaudit.snapshot()["sites"].get(
+            "ec.stage", {"copies": 0})["copies"]
+        donated = pipe.stats()["arena_donations"] - \
+            before["arena_donations"]
+        if len(pipe._arena_free) != min(free0 + 1,
+                                        ec_pipeline.ARENA_POOL_MAX) or \
+                stage1 - stage0 != (0 if donated else 1):
+            raise AssertionError("pooled arena not returned or its "
+                                 "staging copy not accounted")
+        out["pipeline"] = {"cards": cards, "mesh": st["mesh"],
+                           "mesh_dispatches": meshed,
+                           "mesh_degrades": degrades,
+                           "mesh_min_bytes": stripes.nbytes // 4,
+                           "arena_donations": donated,
+                           "arenas_pooled": len(pipe._arena_free)}
+    finally:
+        ec_pipeline.configure(mesh_min_bytes=prev)
+        pipe.stop()
+    emit("mesh_pipeline", **out["pipeline"])
+
+    expect = {"gf_encode": DRYRUN_MEMBERS, "gf_encode_crc": 0,
+              "crc32c_segments": 1, "crc32c_chain": 1}
+    graft_entry.dryrun_multichip(DRYRUN_MEMBERS)      # first use
+    t0 = time.perf_counter()
+    r = counted(cuda_ec, tally, expect, "dryrun_multichip",
+                lambda: graft_entry.dryrun_multichip(DRYRUN_MEMBERS))
+    if not r.get("oracle"):
+        raise AssertionError(f"dry run: {r}")
+    out["dryrun"] = {**r, "launches": expect,
+                     "s": time.perf_counter() - t0}
+    emit("dryrun_multichip", **out["dryrun"])
+    return out
+
+
+# -- phase 12: the admin tools against a cluster on the card ----------------
+
+TOOLS_MONS, TOOLS_OSDS = 1, 12
+TOOLS_POOL, TOOLS_PROFILE_NAME, TOOLS_PG_NUM = "clipool", "k8m3cli", 32
+TOOLS_PROFILE = ("k=8", "m=3", "plugin=tpu", "technique=reed_sol_van",
+                 "host_cutover=1")
+TOOLS_FILE_BYTES = 16 << 20
+TOOLS_BENCH_S, TOOLS_BENCH_BLOCK, TOOLS_BENCH_THREADS = 10, 4 << 20, 8
+TOOLS_SAMPLE = 8
+
+
+def run_cli(main_fn, argv) -> str:
+    import io as io_mod
+    buf = io_mod.StringIO()
+    rc = main_fn(argv, out=buf)
+    if rc != 0:
+        raise AssertionError(f"{main_fn.__module__} {argv} -> rc {rc}: "
+                             f"{buf.getvalue()[-400:]}")
+    return buf.getvalue()
+
+
+def bench_mb_s(text: str) -> float:
+    for line in text.splitlines():
+        if line.startswith("Bandwidth (MB/sec):"):
+            return float(line.split(":", 1)[1])
+    raise AssertionError(f"no bandwidth in rados bench output: {text!r}")
+
+
+def phase_tools(rng, cuda_ec, ec_pipeline, device, tally):
+    """The CLIs against a cluster of port daemons on the card: the ceph
+    CLI sets a tpu k=8 m=3 profile and creates an EC pool on it, rados
+    puts and gets a 16 MiB file and benches 4 MiB writes then reads, and
+    trace_dump renders the OSDs' op dumps as a Chrome trace with ec.*
+    spans.  One counted window, launches equal to device dispatches."""
+    import os
+    import shutil
+
+    from ceph_tpu_torch.ops.pipeline import next_bucket
+    from ceph_tpu_torch.tools import ceph_cli, rados_cli, trace_dump
+    from ceph_tpu_torch.vstart import MiniCluster
+
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "_scratch", "chip_smoke_tools")
+    os.makedirs(work, exist_ok=True)
+    t_start = time.perf_counter()
+    cluster = MiniCluster(num_mons=TOOLS_MONS, num_osds=TOOLS_OSDS,
+                          conf=cluster_conf())
+    try:
+        cluster.start(timeout=120.0)
+        conf = os.path.join(work, "ceph.conf")
+        mon_host = ",".join(f"{h}:{p}" for h, p in
+                            (cluster.monmap.addr_of(n)
+                             for n in cluster.monmap.ranks()))
+        with open(conf, "w") as f:
+            f.write(f"[global]\nfsid = {cluster.monmap.fsid}\n"
+                    f"mon_host = {mon_host}\nobjecter_op_timeout = 120\n")
+        run_cli(ceph_cli.main, ["-c", conf, "osd", "erasure-code-profile",
+                                "set", TOOLS_PROFILE_NAME, *TOOLS_PROFILE])
+        run_cli(ceph_cli.main, ["-c", conf, "osd", "pool", "create",
+                                TOOLS_POOL, str(TOOLS_PG_NUM),
+                                str(TOOLS_PG_NUM), "erasure",
+                                TOOLS_PROFILE_NAME])
+        admin = cluster.client()
+        io = admin.open_ioctx(TOOLS_POOL)
+        if not cluster.leader().osdmon.osdmap.pools[io.pool_id].is_erasure:
+            raise AssertionError("ceph_cli created a replicated pool")
+        cluster.wait_for_clean(CLUSTER_TIMEOUT)
+        boot_s = time.perf_counter() - t_start
+        # the put's 512-stripe encode, the bench's 128-stripe ones and
+        # pairs of them coalesced
+        S = TOOLS_BENCH_BLOCK // (K * CLUSTER_UNIT)
+        buckets = sorted({next_bucket(TOOLS_FILE_BYTES // (K * CLUSTER_UNIT)),
+                          next_bucket(S), next_bucket(2 * S)})
+        t0 = time.monotonic()
+        for osd in cluster.osds.values():
+            warm_codec(osd.get_ec_codec(osd.osdmap.pools[io.pool_id]),
+                       buckets, buckets[0], device)
+        warm_s = time.monotonic() - t0
+        src, dst = os.path.join(work, "in.bin"), os.path.join(work, "out.bin")
+        rng.integers(0, 256, TOOLS_FILE_BYTES, dtype=np.uint8).tofile(src)
+
+        torch.cuda.synchronize()
+        cuda_ec.reset_launches()
+        before = ec_pipeline.stats()
+        base = ["-c", conf, "-p", TOOLS_POOL]
+        t0 = time.perf_counter()
+        run_cli(rados_cli.main, base + ["put", "file", src])
+        put_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run_cli(rados_cli.main, base + ["get", "file", dst])
+        get_s = time.perf_counter() - t0
+        with open(src, "rb") as a, open(dst, "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError("rados get != the file put")
+        bench = ["bench", str(TOOLS_BENCH_S), "write", "-b",
+                 str(TOOLS_BENCH_BLOCK), "-t", str(TOOLS_BENCH_THREADS)]
+        w_out = run_cli(rados_cli.main, base + bench)
+        bench[2] = "seq"
+        r_out = run_cli(rados_cli.main, base + bench)
+        d = cluster_window(cuda_ec, ec_pipeline, tally, before,
+                           "tools: rados put, get and bench")
+        made = sorted(n for n in io.list_objects()
+                      if n.startswith("bench_"))
+        pattern = (bytes(range(256)) * (TOOLS_BENCH_BLOCK // 256 + 1))[
+            :TOOLS_BENCH_BLOCK]
+        for name in made[:TOOLS_SAMPLE]:
+            if bytes(io.read(name)) != pattern:
+                raise AssertionError(f"bench object {name} reads wrong")
+        paths = []
+        for osd in cluster.osds.values():
+            path = os.path.join(work, f"{osd.entity}.json")
+            with open(path, "w") as f:
+                json.dump(osd.op_tracker.dump_historic_ops(), f)
+            paths.append(path)
+        events = json.loads(run_cli(trace_dump.main,
+                                    ["--dump", *paths]))["traceEvents"]
+        ec_spans = sorted({e["name"] for e in events
+                           if e.get("ph") == "X" and
+                           e.get("name", "").startswith("ec.")})
+        if not ec_spans:
+            raise AssertionError("trace_dump shows no ec.* spans")
+        degraded = sum(1 for osd in cluster.osds.values()
+                       for codec in osd._ec_codecs.values()
+                       if codec.degraded)
+        if degraded:
+            raise AssertionError(f"{degraded} codecs degraded")
+        out = {"mons": TOOLS_MONS, "osds": TOOLS_OSDS,
+               "pg_num": TOOLS_PG_NUM, "profile": list(TOOLS_PROFILE),
+               "boot_s": boot_s, "warm_s": warm_s,
+               "file_bytes": TOOLS_FILE_BYTES,
+               "put_gbs": TOOLS_FILE_BYTES / put_s / 1e9,
+               "get_gbs": TOOLS_FILE_BYTES / get_s / 1e9,
+               "bench_write_mb_s": bench_mb_s(w_out),
+               "bench_seq_mb_s": bench_mb_s(r_out),
+               "bench_objects": len(made), "ec_spans": ec_spans,
+               "trace_events": len(events), "window": d,
+               "elapsed_s": time.perf_counter() - t_start}
+        emit("tools", **out)
+        return out
+    finally:
+        cluster.stop()
+        ec_pipeline.get().stop()
+        shutil.rmtree(work, ignore_errors=True)
+
+
 # the kernels of the main path: writes (fused pass), rebuilds, and the
 # deep-scrub CRC channel (crc32c_segments + crc32c_chain)
 KERNEL_META = {
@@ -1770,7 +2184,16 @@ KERNEL_META = {
 }
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Smoke run of the port on "
+                                 "the card (see the module docstring).")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="build the kernels and run phase 11 alone, its "
+                    "plane members one card each while there are cards "
+                    "(the multi-card check of the mesh functions and "
+                    "mode); the whole run needs one card")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1792,6 +2215,18 @@ def main() -> int:
     emit("build", gpu=ident, torch=torch.__version__,
          cuda=torch.version.cuda, build_s=build_s,
          nvcc={k: v.strip()[-400:] for k, v in logs.items()})
+
+    if args.mesh_only:
+        ec_pipeline.configure(depth=PIPE_DEPTH, max_batch=PIPE_MAX_BATCH,
+                              hbm_cache_bytes=HBM_CACHE_BYTES)
+        counts = dict.fromkeys(cuda_ec.launches, 0)
+        phase_mesh(np.random.default_rng(SEED), device, cuda_ec,
+                   ec_kernels, gf, registry, native, crc_mod, ec_pipeline,
+                   ecutil, counts)
+        emit("mesh_only_launches", launches=counts,
+             cards=torch.cuda.device_count())
+        print(ident, flush=True)
+        return 0
 
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
@@ -1825,6 +2260,9 @@ def main() -> int:
                   device, counts)
     phase_doors(rng, cuda_ec, ec_pipeline, hbm_cache, native, crc_mod,
                 device, counts)
+    phase_mesh(rng, device, cuda_ec, ec_kernels, gf, registry, native,
+               crc_mod, ec_pipeline, ecutil, counts)
+    phase_tools(rng, cuda_ec, ec_pipeline, device, counts)
     by_source = {src: sum(n for name, n in counts.items()
                           if name.startswith(src)) for src in cuda_ec.SOURCES}
     emit("main_path_launches", launches=counts, by_source=by_source)

@@ -49,10 +49,19 @@ def _compile(path: str, src: str):
     return compile(tree, path, "exec")
 
 
-def run_reference(namespace: dict, name: str) -> None:
+def run_reference(namespace: dict, name: str, exclude=()) -> None:
+    """Execute the ported file into `namespace`.  `exclude` names the
+    cases that cannot run against the port ("Class::test_x" or
+    "test_x"); the wrapper's docstring says why for each."""
     path, src = ported_source(name)
     exec(_compile(path, src), namespace)
     namespace["_port_on_the_cpu"] = _port_on_the_cpu
+    for case in exclude:
+        cls, _sep, meth = case.rpartition("::")
+        if cls:
+            delattr(namespace[cls], meth)
+        else:
+            del namespace[meth]
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -22,10 +22,12 @@ ceph_tpu and repaired, and fails at the carried-over behaviour:
   going down moves the roles) instead of failing or reading empty;
 - the EC shard-role audit after a mark-out repeats until every member
   holds every object, through a shard scan that timed out and a rebuild
-  push that was lost; the cluster is not clean before that.
+  push that was lost; the cluster is not clean before that;
+- a rebuilt EC shard carries the object's user xattrs and omap, so
+  once the holder of shard 0 is marked out they still read back.
 
 One module cluster (1 mon, 5 MemStore OSDs, CPU lanes, an EC pool k=2
-m=1); the cases run in file order and the OSD kill comes last.
+m=1); the cases run in file order and the two OSD kills come last.
 """
 
 import threading
@@ -386,3 +388,40 @@ def test_role_audit_repeats_until_every_shard_lands(cluster, io,
     monkeypatch.undo()
     for oid, p in payloads.items():
         assert io.read(oid) == p
+
+
+def test_rebuilt_shards_carry_user_xattrs_and_omap(cluster, io):
+    """Write EC objects with a user xattr and an omap, kill and mark out
+    the holder of the first one's shard 0, and wait for clean: the
+    rebuilt shards (local on the new primary, pushed to the others)
+    carry both, so the xattr and the omap read back through librados
+    and every shard file at its holder has them."""
+    oids = [f"meta{i}" for i in range(6)]
+    for i, oid in enumerate(oids):
+        io.write_full(oid, _payload(200 + i, K * UNIT + 13 * i))
+        io.set_xattr(oid, "tag", b"xattr %d" % i)
+        io.set_omap(oid, {"key": b"omap %d" % i, "n": b"%d" % i})
+    cluster.wait_for_clean(60)
+    _pgid, acting = _acting(cluster, io.pool_id, oids[0])
+    victim = acting[0]
+    moved = [oid for oid in oids
+             if victim in _acting(cluster, io.pool_id, oid)[1]]
+    hbm_cache.get().clear()
+    cluster.kill_osd(victim)
+    cluster.mark_osd_down(victim)
+    cluster.wait_for_osd_down(victim)
+    cluster.mark_osd_out(victim)
+    cluster.wait_for_clean(120)
+    for i, oid in enumerate(oids):
+        omap = {"key": b"omap %d" % i, "n": b"%d" % i}
+        assert io.get_xattr(oid, "tag") == b"xattr %d" % i, oid
+        assert io.get_omap(oid) == omap, oid
+        pgid, acting = _acting(cluster, io.pool_id, oid)
+        for shard, holder in enumerate(acting):
+            assert holder != victim
+            store = cluster.osds[holder].store
+            name = f"{oid}.s{shard}"
+            assert store.getattrs(f"pg_{pgid}", name)["u.tag"] == \
+                b"xattr %d" % i, (name, holder, oid in moved)
+            assert store.omap_get(f"pg_{pgid}", name) == omap, \
+                (name, holder, oid in moved)

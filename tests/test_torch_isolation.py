@@ -46,7 +46,12 @@ def test_every_module_imports_without_jax_or_ceph_tpu():
                  "utils.dmclock", "rgw", "rgw.auth_v4", "rgw.swift",
                  "rgw.sync", "fs", "fs.mds", "fs.messages", "rbd",
                  "rbd.mirror", "journal", "client.kv_btree",
-                 "client.object_cacher", "tools.loadgen"):
+                 "client.object_cacher", "tools.loadgen", "graft_entry",
+                 "tools.authtool", "tools.ceph_cli", "tools.cephfs_shell",
+                 "tools.copy_audit", "tools.counter_audit",
+                 "tools.crushtool", "tools.monmaptool",
+                 "tools.objectstore_tool", "tools.osdmaptool",
+                 "tools.rados_cli", "tools.trace_dump"):
         assert f"ceph_tpu_torch.{name}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -59,6 +64,23 @@ def test_every_module_imports_without_jax_or_ceph_tpu():
     out = _run(code)
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_module_set_matches_the_reference():
+    """The port has every module of ceph_tpu but the Pallas kernels
+    (ops/pallas_ec, whose place ops/cuda_ec and csrc/ take), plus its
+    kernel probe and the twin of __graft_entry__.py."""
+    def rel(pkg):
+        root = os.path.join(REPO, pkg)
+        return {os.path.relpath(os.path.join(d, f), root)
+                for d, _dirs, files in os.walk(root)
+                for f in files if f.endswith(".py")}
+
+    ref, port = rel("ceph_tpu"), rel("ceph_tpu_torch")
+    assert ref - port == {os.path.join("ops", "pallas_ec.py")}
+    assert port - ref == {os.path.join("ops", "cuda_ec.py"),
+                          os.path.join("tools", "kernel_probe.py"),
+                          "graft_entry.py"}
 
 
 def test_sources_name_only_port_modules():

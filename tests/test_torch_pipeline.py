@@ -521,32 +521,33 @@ def test_arena_checkout_release_and_dropped_on_timeout(monkeypatch):
     payload = _rand(4, 100_000).tobytes()
     nbytes = sinfo.stripe_count(len(payload)) * sinfo.stripe_width
     checkouts = []
+    pipe = ec_pipeline.get()
     real = ec_pipeline.EcDevicePipeline.checkout_arena
 
-    def spy(n, plen):
-        checkouts.append(real(n, plen))
+    def spy(self, n, plen):
+        checkouts.append(real(self, n, plen))
         return checkouts[-1]
 
     monkeypatch.setattr(ec_pipeline.EcDevicePipeline, "checkout_arena",
-                        staticmethod(spy))
+                        spy)
     shards, crcs = ecutil.encode_object(codec, sinfo, payload)
     jshards, jcrcs = ecutil.encode_object(
         tregistry.factory("jerasure", {"k": "4", "m": "2"}), sinfo, payload)
     assert crcs == jcrcs
     assert all(bytes(a) == bytes(b) for a, b in zip(shards, jshards))
     assert len(checkouts) == 1 and checkouts[0].buf.nbytes == nbytes
-    assert real(nbytes, len(payload)).buf[len(payload):].sum() == 0
-    assert real((1 << 16) - 1, 0) is None
+    assert real(pipe, nbytes, len(payload)).buf[len(payload):].sum() == 0
+    assert real(pipe, (1 << 16) - 1, 0) is None
     # a never-resolved item: the producer raises, its arena stays with
     # the queued item, and the next checkout gets other memory
     monkeypatch.setattr(ec_pipeline, "RESULT_TIMEOUT", 0.1)
-    arena = real(nbytes, len(payload))
+    arena = real(pipe, nbytes, len(payload))
     handle = ecutil.EncodeHandle(
         None, plugin_tpu._PipelinedEncode(
             codec, arena.buf.reshape(-1, 4, 4096), Future()).result_parts)
     with pytest.raises(TimeoutError):
         handle.result()
-    again = real(nbytes, len(payload))
+    again = real(pipe, nbytes, len(payload))
     assert again.tensor.data_ptr() != arena.tensor.data_ptr()
 
 
@@ -557,7 +558,7 @@ def test_arena_parts_upload_item_by_item():
     def item(fill, arena=True):
         if not arena:
             return ec_pipeline._Item(np.full((3, 2, 8), fill, np.uint8))
-        ar = ec_pipeline.EcDevicePipeline.checkout_arena(
+        ar = ec_pipeline.get().checkout_arena(
             ec_pipeline.ARENA_MIN_BYTES, ec_pipeline.ARENA_MIN_BYTES)
         ar.buf[:] = fill
         return ec_pipeline._Item(ar.buf.reshape(-1, 2, 8), arena=ar)
