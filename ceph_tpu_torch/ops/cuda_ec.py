@@ -51,7 +51,7 @@ import torch
 
 from . import crc32c as crc_mod
 from . import ec_kernels, gf
-from .ec_kernels import DEFAULT_COMPUTE, as_u8, batched
+from .ec_kernels import DEFAULT_COMPUTE, batched, host_results
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -497,12 +497,11 @@ def make_crc_fn(L: int, compute: str = DEFAULT_COMPUTE):
     """fn(rows (N, L) uint8) -> (N,) uint32 CRC32C, seed 0."""
 
     def run(rows):
-        rows = as_u8(rows)
         if rows.shape[-1] != L:
             raise ValueError(f"crc: want L={L}, got {rows.shape[-1]}")
         return crc32c_rows(rows, compute)
 
-    return run
+    return host_results(run)
 
 
 def make_encode_crc_fn(matrix: np.ndarray, L: int,

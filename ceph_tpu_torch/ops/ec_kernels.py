@@ -132,19 +132,34 @@ def gf2_matmul_bytes(g_bits, data: torch.Tensor,
     return _pack_bits(_mod2(_contract(g, _unpack_bits(data), acc)))
 
 
-def batched(fn):
-    """Accept (k, L) as well as (B, k, L) — the 2-D form is a batch of
-    one — and numpy input, which moves to the package device."""
+def host_results(fn):
+    """fn over a uint8 tensor, which also takes numpy input (or bytes):
+    that moves to the package device, and the results come back to the
+    host, as a JAX array given to np.asarray does.  A tensor input keeps
+    its results where they are."""
 
     def call(data):
-        data = as_u8(data)
+        out = fn(as_u8(data))
+        if isinstance(data, torch.Tensor):
+            return out
+        return tuple(o.cpu() for o in out) if isinstance(out, tuple) \
+            else out.cpu()
+
+    return call
+
+
+def batched(fn):
+    """Accept (k, L) as well as (B, k, L) — the 2-D form is a batch of
+    one — and numpy input (see :func:`host_results`)."""
+
+    def call(data):
         if data.ndim != 2:
             return fn(data)
         out = fn(data[None])
         return tuple(o[0] for o in out) if isinstance(out, tuple) \
             else out[0]
 
-    return call
+    return host_results(call)
 
 
 def make_codec_fn(matrix: np.ndarray, w: int = 8,
@@ -300,8 +315,7 @@ def make_crc_fn(nbytes: int, block: int = DEFAULT_CRC_BLOCK,
     """
     if nbytes % block:
         block = _pick_block(nbytes)
-    fn = _crc_fn(nbytes, block, compute)
-    return lambda chunks: fn(as_u8(chunks))
+    return host_results(_crc_fn(nbytes, block, compute))
 
 
 def segment_crcs(rows: torch.Tensor, seg_len: int,
@@ -366,12 +380,11 @@ def _encode_crc(matrix, nbytes, block, compute, witness_only):
     crc = _crc_fn(nbytes, block, compute)
 
     def run(data):
-        data = as_u8(data)
         parity = gf2_matmul_bytes(bits.on(data.device), data, compute)
         crcs = crc(torch.cat([data, parity], dim=-2))
         return crcs if witness_only else (parity, crcs)
 
-    return run
+    return host_results(run)
 
 
 def make_encode_crc_fn(matrix: np.ndarray, nbytes: int,

@@ -25,7 +25,8 @@ producer feeds this one dispatcher:
     kernel a channel's device fn launches goes onto the lane's stream.
     Placement is least-loaded with a round-robin tie-break.  On a CPU
     package device the lanes are ``device_shards`` CPU lanes (default
-    1) without streams: the tests drive the whole machinery there.
+    :data:`CPU_LANES`) without streams: the tests drive the whole
+    machinery there.
   * **mega-batch splitting** — a large coalesced batch splits across
     idle lanes (``split_min`` stripes per part); each part pads to its
     own bucket and the parts re-assemble in submit order.
@@ -99,6 +100,7 @@ of dispatch-issue and that lane's previous fetch-completion).
 from __future__ import annotations
 
 import contextlib
+import inspect
 import threading
 import time
 from collections import deque
@@ -151,6 +153,9 @@ _UNSET = object()
 # TimeoutError; a producer blocked RESULT_TIMEOUT in result() gets a
 # TimeoutError (plugin_tpu).  Nothing is served from the host instead.
 STALL_TIMEOUT = 60.0
+# CPU lanes when device_shards is unset ("all") on a CPU package device:
+# the port's counterpart of the virtual CPU device count XLA is given
+CPU_LANES = 1
 RESULT_TIMEOUT = 120.0
 
 
@@ -187,11 +192,32 @@ def _no_record(path, nbytes, secs, depth=1, device=None) -> None:
     return None
 
 
+def _wrap_device_fn(device_fn):
+    """Accept both fn(padded) and fn(padded, device), as the reference
+    does; wrapping once at construction keeps the dispatch path free of
+    per-call signature probing."""
+    if device_fn is None:
+        return None
+    try:
+        params = list(inspect.signature(device_fn).parameters.values())
+    except (TypeError, ValueError):
+        return device_fn
+    if len(params) >= 2 or any(
+            p.kind in (p.VAR_POSITIONAL, p.VAR_KEYWORD) for p in params):
+        return device_fn
+
+    def wrapped(padded, device=None, _fn=device_fn):
+        return _fn(padded)
+
+    return wrapped
+
+
 class PipelineChannel:
     """One coalescable work class.
 
     host_fn(batch) -> tuple of np arrays, each with leading dim ==
-    batch.shape[0].  device_fn(padded, device) takes the padded batch as
+    batch.shape[0].  device_fn(padded, device) (or device_fn(padded))
+    takes the padded batch as
     a uint8 tensor on the lane's device and returns the same tuple as
     tensors on that device (launched on the current stream, which the
     pipeline sets to the lane's), or None when its kernels are not warm
@@ -219,7 +245,7 @@ class PipelineChannel:
                  qos_class="write", mesh_fn=None):
         self.key = key
         self.host_fn = host_fn
-        self.device_fn = device_fn
+        self.device_fn = _wrap_device_fn(device_fn)
         self.route = route if route is not None else \
             (lambda nbytes: device_fn is not None)
         self.on_error = on_error or (lambda e: None)
@@ -417,7 +443,8 @@ class _Lane:
 class DeviceSet:
     """The lanes, built at first device dispatch from the package
     device: every visible CUDA device for ``cuda`` (``shards`` caps the
-    count), or ``shards`` CPU lanes (default 1) for ``cpu``.  A ``cuda``
+    count), or ``shards`` CPU lanes (default :data:`CPU_LANES`) for
+    ``cpu``.  A ``cuda``
     package device with no card raises: there is no pseudo-lane."""
 
     def __init__(self, shards: int | None = None):
@@ -433,7 +460,8 @@ class DeviceSet:
             if shards is not None:
                 devices = devices[: max(1, int(shards))]
         elif dev.type == "cpu":
-            devices = [torch.device("cpu")] * max(1, int(shards or 1))
+            devices = [torch.device("cpu")] * max(
+                1, int(shards or CPU_LANES))
         else:
             raise ValueError(f"EC pipeline: unsupported device {dev}")
         self.lanes = [_Lane(d, i) for i, d in enumerate(devices)]

@@ -10,7 +10,7 @@ live in ecutil.py / ops/.
 
 from __future__ import annotations
 
-from errno import EIO
+from errno import EAGAIN, EIO
 
 import numpy as np
 
@@ -937,6 +937,15 @@ class ECBackend:
             for conn, msg in ops:
                 self._reply(conn, msg, -11, [])
 
+    def _ec_unreadable(self, oid: str) -> StoreError:
+        """The error of a read whose shard gather fell short: ENOENT only
+        for an object the log does not hold.  One the log holds exists
+        (its write was acked), and a gather that missed k shards (peers
+        slower than the sub-read window) is worth a resend: EAGAIN."""
+        if self.pglog.objects.get(oid) is None:
+            return StoreError(ENOENT, "no such object")
+        return StoreError(EAGAIN, f"EC object {oid}: shard gather short")
+
     def _ec_read(self, conn, msg) -> None:
         if self._ec_write_gathering(msg.oid):
             # a write of this object has its shards applied on some
@@ -954,7 +963,7 @@ class ECBackend:
                 if op[0] == "read":
                     data = self._ec_read_local(msg.oid)
                     if data is None:
-                        raise StoreError(ENOENT, "unreadable EC object")
+                        raise self._ec_unreadable(msg.oid)
                     end = None if op[2] == 0 else op[1] + op[2]
                     out.append(data[op[1]: end])
                 elif op[0] == "stat":
@@ -974,7 +983,7 @@ class ECBackend:
                     if size is None:
                         data = self._ec_read_local(msg.oid)
                         if data is None:
-                            raise StoreError(ENOENT, "no such object")
+                            raise self._ec_unreadable(msg.oid)
                         size = len(data)
                     out.append({"size": size,
                                 "version": self._obj_version(msg.oid)})

@@ -642,9 +642,13 @@ class Peering:
             divergent = self.pglog.rewind(auth_ev, on_divergent=undo)
             if not divergent:
                 return 0
-            self.version = max((e["ev"][1]
-                                for e in self.pglog.entries),
-                               default=0)
+            # the version counter does NOT move back with the log: a
+            # rewind inside one interval keeps its epoch, and a replica
+            # that applied a rewound write late holds a log entry at
+            # that eversion — minted again, the next write would be
+            # acked there as a resend and never applied
+            self.version = max([self.version] + [e["ev"][1]
+                                                 for e in self.pglog.entries])
             self._persist_log(txn)
             try:
                 store.apply_transaction(txn)

@@ -317,6 +317,10 @@ class PG(ReplicatedBackend, ECBackend, CacheTier, SnapOps, Peering,
                 self._drop_recovery_blocked()   # clients re-send
                 self._drop_reads_behind_writes()    # clients re-send
                 self._pull_queued_at.clear()    # new round re-pulls
+                # the dead interval's catch-up: its poll returns without
+                # clearing it, and a primary no longer behind never
+                # fetches again — left set, the pg never reads clean
+                self._catchup_pending = {}
                 self._heal_pushed_at.clear()
                 self.peer_last_backfill.clear()  # peering re-learns
                 self.active = False

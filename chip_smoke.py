@@ -114,6 +114,20 @@ file byte for byte, then `bench 10 write -b 4194304 -t 8` and `seq`
 (MB/s printed, a sample of the bench objects read back); trace_dump
 renders the OSDs' op dumps as a Chrome trace with ec.* spans.
 
+Phase 13 runs the reference's device-path test files against the port
+on the card: the tests/test_torch_*.py wrappers of test_ecutil,
+test_erasure, test_faults, test_hbm_cache, test_pipeline,
+test_scrub_repair, test_recovery_backfill, test_ec_append and
+test_cluster, each through pytest.main in this process with the port's
+device on the card (tests/_port_reference.OnTheCard; no
+tests/conftest.py, which imports JAX).  Every collected case must pass;
+per file it prints the cases, the launches of each kernel entry point
+(counts zeroed before the file) and the batches a dispatch pipeline
+served on the host, and together the files must launch gf_encode_crc,
+gf_encode and crc32c_chain.  A file whose cases all route to the host
+at their sizes prints 0 launches; that is a finding, not a failure.
+`--suite-only` runs this phase alone.
+
 In each window of phases 9, 10 and 12 every kernel entry point launched
 exactly once per device dispatch of its kind (pipeline.stats()
 dev_dispatches_enc/_dec/_crc), at least one device dispatch ran (except
@@ -2184,6 +2198,134 @@ KERNEL_META = {
 }
 
 
+# Phase 13: the reference's device-path test files, through their
+# tests/test_torch_*.py wrappers, with the port's device on the card.
+# pytest runs in this process without tests/conftest.py (it imports
+# JAX); the wrappers' _port_reference plugin asks for the card and
+# registers the `slow` marker.
+REF_SUITE = ("test_torch_ecutil", "test_torch_ref_erasure",
+             "test_torch_faults", "test_torch_ref_hbm_cache",
+             "test_torch_ref_pipeline", "test_torch_scrub_repair",
+             "test_torch_recovery_backfill", "test_torch_ec_append",
+             "test_torch_ref_cluster")
+REF_SUITE_KERNELS = ("gf_encode_crc", "gf_encode", "crc32c_chain")
+REF_SUITE_TIMEOUT_S = 420.0
+
+
+class _SuiteTally:
+    """pytest plugin: per-file case outcomes (a case failing in any
+    phase counts failed), and every dispatch pipeline the file's cases
+    build, for their host-served batches."""
+
+    def __init__(self, pipeline_cls):
+        self.results: dict[str, str] = {}
+        self.collected = 0
+        self.pipes: list = []
+        self._cls, self._init = pipeline_cls, pipeline_cls.__init__
+        pipes, init = self.pipes, self._init
+
+        def tracked(pipe, *a, **kw):
+            init(pipe, *a, **kw)
+            pipes.append(pipe)
+
+        pipeline_cls.__init__ = tracked
+
+    def close(self) -> None:
+        self._cls.__init__ = self._init
+
+    def outcomes(self) -> dict:
+        return {k: sum(v == k for v in self.results.values())
+                for k in ("passed", "failed", "skipped")}
+
+    def failures(self) -> list:
+        return [n for n, v in self.results.items() if v == "failed"]
+
+    def pytest_collection_finish(self, session):
+        self.collected = len(session.items)
+
+    def pytest_runtest_logreport(self, report):
+        prev = self.results.get(report.nodeid)
+        if report.failed:
+            self.results[report.nodeid] = "failed"
+        elif report.skipped and prev != "failed":
+            self.results[report.nodeid] = "skipped"
+        elif report.when == "call" and prev is None:
+            self.results[report.nodeid] = "passed"
+
+
+def phase_reference_suite(cuda_ec, ec_pipeline, hbm_cache, device):
+    """Run each wrapper of REF_SUITE under pytest with the card asked
+    for: every collected case must pass; per file, the launches of each
+    kernel entry point (counts zeroed before the file) and the batches
+    a dispatch pipeline served on the host.  Together the files must
+    launch each of REF_SUITE_KERNELS."""
+    import faulthandler
+    import os
+
+    import pytest
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tests")
+    sys.path.insert(0, tests)
+    from _port_reference import OnTheCard
+
+    total = dict.fromkeys(cuda_ec.launches, 0)
+    rows, t_phase = [], time.perf_counter()
+    faulthandler.dump_traceback_later(REF_SUITE_TIMEOUT_S, exit=True)
+    try:
+        for name in REF_SUITE:
+            ec_pipeline.get().stop()
+            hbm_cache.get().clear()
+            args = [os.path.join(tests, f"{name}.py"), "-q", "-m",
+                    "not slow", "--noconftest", "-p", "no:cacheprovider",
+                    "-p", "no:randomly"]
+            tally = _SuiteTally(ec_pipeline.EcDevicePipeline)
+            torch.cuda.synchronize()
+            cuda_ec.reset_launches()
+            host0 = ec_pipeline.stats()["host_dispatches"]
+            t0 = time.perf_counter()
+            try:
+                rc = pytest.main(args, plugins=[OnTheCard(str(device)),
+                                                tally])
+            finally:
+                tally.close()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = cuda_ec.launch_counts()
+            host = ec_pipeline.stats()["host_dispatches"] - host0 + sum(
+                p.stats()["host_dispatches"] for p in tally.pipes
+                if p is not ec_pipeline.get())
+            for k, v in launches.items():
+                total[k] += v
+            wrapper = sys.modules.get(name)
+            row = {"file": f"tests/{name}.py", "rc": int(rc),
+                   "collected": tally.collected, **tally.outcomes(),
+                   "excluded_in_wrapper": list(
+                       getattr(wrapper, "_port_excluded", ())),
+                   "launches": launches,
+                   "host_batches": host, "wall_s": wall,
+                   "all_host": not any(launches.values())}
+            emit("reference_suite_file", **row)
+            rows.append(row)
+            if rc != 0 or row["failed"] or not tally.collected or \
+                    row["passed"] != tally.collected:
+                raise AssertionError(
+                    f"reference suite on the card: {name} rc {rc}, "
+                    f"{tally.outcomes()} of {tally.collected}, failed "
+                    f"{tally.failures()[:10]}")
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+        ec_pipeline.get().stop()
+    idle = [k for k in REF_SUITE_KERNELS if total[k] < 1]
+    emit("reference_suite", files=len(rows),
+         passed=sum(r["passed"] for r in rows),
+         collected=sum(r["collected"] for r in rows), launches=total,
+         host_batches=sum(r["host_batches"] for r in rows),
+         wall_s=time.perf_counter() - t_phase)
+    if idle:
+        raise AssertionError(f"reference suite launched no {idle}")
+    return rows
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of the port on "
@@ -2193,6 +2335,9 @@ def main(argv=None) -> int:
                     "plane members one card each while there are cards "
                     "(the multi-card check of the mesh functions and "
                     "mode); the whole run needs one card")
+    ap.add_argument("--suite-only", action="store_true",
+                    help="build the kernels and run phase 13 alone (the "
+                    "reference's device-path test files on the card)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2225,6 +2370,10 @@ def main(argv=None) -> int:
                    ecutil, counts)
         emit("mesh_only_launches", launches=counts,
              cards=torch.cuda.device_count())
+        print(ident, flush=True)
+        return 0
+    if args.suite_only:
+        phase_reference_suite(cuda_ec, ec_pipeline, hbm_cache, device)
         print(ident, flush=True)
         return 0
 
@@ -2269,6 +2418,7 @@ def main(argv=None) -> int:
     idle = [n for n in KERNEL_META if counts[n] < 1]
     if idle:
         raise AssertionError(f"kernels not launched on the main path: {idle}")
+    phase_reference_suite(cuda_ec, ec_pipeline, hbm_cache, device)
 
     kernels = []
     for name, (src, replaces) in KERNEL_META.items():

@@ -24,7 +24,17 @@ ceph_tpu and repaired, and fails at the carried-over behaviour:
   holds every object, through a shard scan that timed out and a rebuild
   push that was lost; the cluster is not clean before that;
 - a rebuilt EC shard carries the object's user xattrs and omap, so
-  once the holder of shard 0 is marked out they still read back.
+  once the holder of shard 0 is marked out they still read back;
+- a primary that rewinds a divergent entry never mints its version
+  again: a replica that applied the rewound write late holds a log
+  entry at that version, and would ack the next write there as a resend
+  without applying it;
+- an EC read of an object the primary's log holds, whose shard
+  gather fell short (peers slower than the sub-read window under load),
+  answers EAGAIN and the client resends; it never answers ENOENT, which
+  tells the client an acknowledged object does not exist;
+- a new interval drops the catch-up a primary began in the last one,
+  whose poll ends without clearing it: the pg must not stay unclean.
 
 One module cluster (1 mon, 5 MemStore OSDs, CPU lanes, an EC pool k=2
 m=1); the cases run in file order and the two OSD kills come last.
@@ -388,6 +398,103 @@ def test_role_audit_repeats_until_every_shard_lands(cluster, io,
     monkeypatch.undo()
     for oid, p in payloads.items():
         assert io.read(oid) == p
+
+
+def test_a_short_shard_gather_is_retried_not_enoent(cluster, io,
+                                                    monkeypatch):
+    """The primary holds one shard of a k=2 object and fetches the rest;
+    its first two gathers (the acting gather and the degraded sweep)
+    come back empty, as when every peer's sub-read misses its window.
+    The read must still return the object: the first try answers
+    EAGAIN and the client's resend reads it."""
+    payload = _payload(310, 3 * K * UNIT + 11)
+    io.write_full("slowpeers", payload)
+    pgid, acting = _acting(cluster, io.pool_id, "slowpeers")
+    osd = cluster.osds[acting[0]]
+    hbm_cache.get().clear()
+    real, calls = osd.ec_fetch_shards, []
+
+    def short(*a, **kw):
+        calls.append(1)
+        return {} if len(calls) <= 2 else real(*a, **kw)
+
+    monkeypatch.setattr(osd, "ec_fetch_shards", short)
+    assert io.read("slowpeers") == payload
+    assert len(calls) > 2, "the gather was never short"
+
+
+def test_a_new_interval_drops_the_dead_intervals_catch_up():
+    """A primary that was catching up from an auth peer (its pulls in
+    flight, `_catchup_pending` set) when the interval changed: the poll
+    of the dead interval returns without clearing the pending set, and
+    the new interval's round, in which the primary is no longer behind,
+    never fetches again.  The new interval must drop the dead one's
+    catch-up, or the pg never reads clean (the ledger-door drill's 240 s
+    `restart_osd` timeout)."""
+    c = MiniCluster(num_mons=1, num_osds=3).start()
+    try:
+        rados = c.client()
+        rados.create_pool("catchup", pg_num=1, size=3, min_size=2)
+        io = rados.open_ioctx("catchup")
+        io.write_full("o", b"catch-up" * 64)
+        c.wait_for_clean(60)
+        pgid, acting = _acting(c, io.pool_id, "o")
+        primary = c.osds[acting[0]].get_pg(pgid)
+        with primary.lock:
+            primary._catchup_pending = {"o": tuple(primary.pglog.head)}
+            primary._catchup_polls = 0
+        victim = acting[2]
+        c.kill_osd(victim)
+        c.mark_osd_down(victim)
+        c.wait_for_osd_down(victim, 60.0)
+        c.start_osd(victim)
+        c.wait_for_osds(3, 60.0)
+        c.wait_for_clean(30)
+        assert io.read("o") == b"catch-up" * 64
+    finally:
+        c.stop()
+
+
+def test_a_rewound_version_is_never_minted_again():
+    """The primary applies a write at version v and its peering round
+    rewinds it (its replicas had not applied it yet when they answered),
+    in the same interval.  The write's sub-writes then land late on both
+    replicas, whose logs hold an entry at v.  The next client write must
+    get a version past v: at v itself each replica would take it for a
+    resend, ack it and apply nothing, and the acked object would live on
+    one shard of three (the pg_split drill's ENOENT)."""
+    from ceph_tpu_torch.osd.backend_ec import VER_KEY
+    c = MiniCluster(num_mons=1, num_osds=3).start()
+    try:
+        io = c.client()
+        io.create_ec_pool("rewound", "k2m1", PROFILE, pg_num=1)
+        io = io.open_ioctx("rewound")
+        io.write_full("base", _payload(300, K * UNIT))
+        c.wait_for_clean(60)
+        pgid, acting = _acting(c, io.pool_id, "base")
+        primary = c.osds[acting[0]].get_pg(pgid)
+        replicas = [c.osds[o].get_pg(pgid) for o in acting[1:]]
+        with primary.lock:
+            head = primary.pglog.head
+            primary.version += 1
+            ghost = (primary.interval_epoch, primary.version)
+            for pg in [primary] + replicas:
+                entry = dict(pg.pglog.entries[-1], ev=ghost, oid="ghost",
+                             op="modify", prior=None, rollback=None)
+                pg._log_and_apply(Transaction(), entry)
+            primary.rewind_divergent_log(head)
+        payload = _payload(301, K * UNIT + 7)
+        io.write_full("victim", payload)
+        for shard, osd in enumerate(acting):
+            pg = c.osds[osd].get_pg(pgid)
+            ver = c.osds[osd].store.getattr(pg.cid, f"victim.s{shard}",
+                                             VER_KEY)
+            assert "victim" in pg.pglog.objects, (osd, ghost)
+            assert ver == repr(tuple(pg.pglog.objects["victim"])).encode()
+            assert tuple(pg.pglog.objects["victim"]) > ghost
+        assert io.read("victim") == payload
+    finally:
+        c.stop()
 
 
 def test_rebuilt_shards_carry_user_xattrs_and_omap(cluster, io):

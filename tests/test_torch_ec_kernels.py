@@ -128,6 +128,45 @@ def test_encode_readback_bytes_identity():
             jek.encode_readback_bytes(*args)
 
 
+def _host_copies(monkeypatch) -> list:
+    calls = []
+    cpu = torch.Tensor.cpu
+
+    def counted(self, *a, **kw):
+        calls.append(self.shape)
+        return cpu(self, *a, **kw)
+
+    monkeypatch.setattr(torch.Tensor, "cpu", counted)
+    return calls
+
+
+@pytest.mark.parametrize("make", [
+    lambda m: ec_kernels.make_codec_fn(m),
+    lambda m: ec_kernels.make_encode_crc_fn(m, 256),
+    lambda m: ec_kernels.make_encode_crc_witness_fn(m, 256),
+    lambda m: cuda_ec.make_encode_fn(m),
+    lambda m: cuda_ec.make_encode_crc_fn(m, 256),
+    lambda m: (lambda d: ec_kernels.make_crc_fn(256)(d.reshape(-1, 256))),
+    lambda m: (lambda d: cuda_ec.make_crc_fn(256)(d.reshape(-1, 256))),
+], ids=["codec", "encode_crc", "witness", "cuda_encode", "cuda_encode_crc",
+        "crc", "cuda_crc"])
+def test_numpy_input_results_come_back_to_the_host(make, monkeypatch):
+    """A numpy batch moves to the package device and its results come
+    back to the host, as a JAX array given to np.asarray does (the
+    reference's tests read results that way); a tensor keeps its
+    results where they are."""
+    fn = make(gf.reed_sol_van_matrix(3, 2))
+    data = np.random.default_rng(3).integers(0, 256, (2, 3, 256),
+                                             dtype=np.uint8)
+    calls = _host_copies(monkeypatch)
+    fn(torch.from_numpy(data))
+    assert calls == []
+    out = fn(data)
+    outs = out if isinstance(out, tuple) else (out,)
+    assert len(calls) == len(outs)
+    assert all(o.device.type == "cpu" for o in outs)
+
+
 @pytest.mark.parametrize("technique,k,w,packetsize", [
     ("cauchy_good", 4, 8, 16),
     ("cauchy_orig", 3, 8, 8),

@@ -172,3 +172,98 @@ def test_set_device_round_trips():
     finally:
         ceph_tpu_torch.set_device(prev)
     assert ceph_tpu_torch.get_device() == prev
+
+
+TESTS = os.path.join(REPO, "tests")
+
+
+def _wrappers() -> list[str]:
+    """The tests/test_torch_*.py files that run a reference file
+    against the port through _port_reference."""
+    return sorted(f[:-3] for f in os.listdir(TESTS)
+                  if f.startswith("test_torch_") and f.endswith(".py")
+                  and "run_reference(" in open(os.path.join(TESTS, f)).read())
+
+
+def test_wrappers_hold_no_reference_object():
+    """Every wrapper, once loaded, holds only the port's objects: no
+    name in its namespace, no base class of a class there, comes from a
+    ceph_tpu module or from a reference test module (a sibling import
+    must load the sibling's ported source).  Loading them all imports
+    neither JAX nor ceph_tpu nor any reference test module; the files
+    chip_smoke.py runs on the card are among them."""
+    names = _wrappers()
+    assert len(names) >= 61, names
+    code = (
+        "import importlib, json, sys, types\n"
+        f"sys.path.insert(0, {TESTS!r})\n"
+        f"names = {names!r}\n"
+        "def ref(mod):\n"
+        "    mod = mod or ''\n"
+        "    return (mod == 'ceph_tpu' or mod.startswith('ceph_tpu.')\n"
+        "            or (mod.startswith('test_')\n"
+        "                and not mod.startswith('test_torch_')))\n"
+        "bad = []\n"
+        "for name in names:\n"
+        "    mod = importlib.import_module(name)\n"
+        "    for key, val in vars(mod).items():\n"
+        "        where = val.__name__ if isinstance(val, types.ModuleType)\\\n"
+        "            else getattr(val, '__module__', None)\n"
+        "        if not isinstance(where, str):\n"
+        "            where = type(val).__module__\n"
+        "        bases = [b.__module__ for b in getattr(val, '__mro__', ())]\n"
+        "        if ref(where) or any(ref(b) for b in bases):\n"
+        "            bad.append(f'{name}.{key}: {where}')\n"
+        "loaded = sorted(n for n in sys.modules if n == 'jax'\n"
+        "                or n.startswith(('jax.', 'jaxlib'))\n"
+        "                or n == 'ceph_tpu' or n.startswith('ceph_tpu.')\n"
+        "                or (n.startswith('test_')\n"
+        "                    and not n.startswith('test_torch_')))\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        "import chip_smoke\n"
+        "print(json.dumps({'bad': bad, 'loaded': loaded,\n"
+        "    'suite': sorted(set(chip_smoke.REF_SUITE) - set(names))}))\n")
+    out = _run(code)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"bad": [], "loaded": [], "suite": []}
+
+
+def test_sibling_imports_load_the_ported_sibling():
+    """test_async_msgr and test_chaos import sibling test modules; the
+    wrapper re-roots each import at the sibling's ported module, which
+    the sibling's own wrapper shares (one message registry binding)."""
+    import _port_reference as pr
+    _path, src = pr.ported_source("test_async_msgr")
+    assert pr.siblings(src) == ["test_msg", "test_wire_corpus"]
+    assert "from _ported_test_msg import" in src
+    _path, src = pr.ported_source("test_chaos")
+    assert pr.siblings(src) == ["test_stress_model"]
+    assert "        from _ported_test_stress_model import" in src
+
+
+def _pytest_gf(plugin: bool) -> subprocess.CompletedProcess:
+    code = (
+        "import sys, pytest\n"
+        f"sys.path.insert(0, {TESTS!r})\n"
+        "from _port_reference import OnTheCard\n"
+        f"plugins = [OnTheCard()] if {plugin!r} else []\n"
+        f"sys.exit(pytest.main([{os.path.join(TESTS, 'test_torch_gf.py')!r},\n"
+        "    '-q', '--noconftest', '-p', 'no:cacheprovider', '-p',\n"
+        "    'no:randomly', '-x'], plugins=plugins))\n")
+    return _run(code)
+
+
+def test_asked_for_the_card_without_one_the_wrappers_raise():
+    """The wrappers run on the CPU unless a run asks for the card
+    (chip_smoke.py passes _port_reference.OnTheCard to pytest); asked
+    for it with no card present, the device fixture raises and no case
+    falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the card run works")
+    on_cpu = _pytest_gf(plugin=False)
+    assert on_cpu.returncode == 0, on_cpu.stdout[-2000:]
+    on_card = _pytest_gf(plugin=True)
+    assert on_card.returncode != 0
+    assert "no CUDA device is present" in on_card.stdout
+    assert " passed" not in on_card.stdout.splitlines()[-1]

@@ -585,6 +585,66 @@ def _plus_one_channel(key, host_calls, route=lambda n: True):
         device_fn=lambda padded, device: (padded + 1,), route=route)
 
 
+def test_one_argument_device_fn_serves_on_the_device():
+    """A channel whose device fn takes only the padded batch (the
+    reference's older form, ``fn(padded)``) is served on the lane, not
+    failed as a device error on every call."""
+    host_calls = []
+    chan = ec_pipeline.PipelineChannel(
+        key=("t", "one-arg"),
+        host_fn=lambda b: (host_calls.append(1), (b,))[1],
+        device_fn=lambda padded: (padded + 1,), route=lambda n: True)
+    pipe = ec_pipeline.EcDevicePipeline(device_shards=1)
+    arr = np.arange(8, dtype=np.uint8).reshape(1, 8)
+    try:
+        path, (out,) = pipe.submit(chan, arr).result(20)
+        assert path == "dev" and np.array_equal(out, arr + 1)
+        st = pipe.stats()
+        assert st["device_errors"] == 0 and st["quarantines"] == 0
+        assert not host_calls
+    finally:
+        pipe.stop()
+
+
+def test_unset_device_shards_builds_cpu_lanes(monkeypatch):
+    """On the CPU an unset device_shards ("all") builds CPU_LANES lanes,
+    the count an OSD's pipeline gets from osd_ec_device_shards=all."""
+    monkeypatch.setattr(ec_pipeline, "CPU_LANES", 8)
+    assert [l.index for l in ec_pipeline.DeviceSet().lanes] == list(range(8))
+    assert len(ec_pipeline.DeviceSet(2).lanes) == 2
+    pipe = ec_pipeline.EcDevicePipeline()
+    try:
+        assert pipe.start_lanes() == 8
+    finally:
+        pipe.stop()
+
+
+def test_crc_channel_device_error_raises_and_does_not_latch(monkeypatch):
+    """A device error on the scrub CRC channel fails the batch with that
+    error, and the channel keeps routing to the device: the reference
+    latched it to the host fold for good (``_crc_device_dead``)."""
+    def broken(size, shape, device):
+        def fn(padded):
+            raise RuntimeError("crc32c_chain: CUDA error 700 at launch")
+        return fn
+
+    monkeypatch.setattr(ec_pipeline, "crc_fn_if_ready", broken)
+    chan = ec_pipeline.crc_channel(64)
+    pipe = ec_pipeline.EcDevicePipeline(device_shards=1)
+    arr = _rand(9, 3, 64)
+    try:
+        with pytest.raises(RuntimeError, match="CUDA error 700"):
+            pipe.submit(chan, arr).result(20)
+        assert chan.route(64) is True
+        assert not hasattr(ec_pipeline, "_crc_device_dead")
+        pipe.reset_devices()
+        with pytest.raises(RuntimeError, match="CUDA error 700"):
+            pipe.submit(chan, arr).result(20)
+        assert pipe.stats()["host_dispatches"] == 0
+    finally:
+        pipe.stop()
+
+
 def test_route_error_reaches_the_futures():
     """A route callback that raises fails its batch with that error: it
     does not send the batch to the host."""
