@@ -376,8 +376,6 @@ class TorchBackend:
         thread and the caller serves from host meanwhile.  If the
         warm-up failed, this raises its error for every later call.
         """
-        import threading
-
         device = self.device if device is None else torch.device(device)
         rkey = ((kind, matrix.shape, *extra), tuple(shape),
                 ec_pipeline.device_warm_key(device))
@@ -417,8 +415,7 @@ class TorchBackend:
                 with self._warm_lock:
                     self._warming.discard(rkey)
 
-        threading.Thread(target=warm, daemon=True,
-                         name="ec-kernel-warm").start()
+        ec_pipeline.start_warm_up(warm)
         return None
 
     def _timed(self, path: str, nbytes: int, fn) -> np.ndarray:

@@ -405,19 +405,26 @@ class Monitor(Dispatcher):
         for svc in self.services.values():
             svc.update_from_paxos()
         self._drain_proposing()
-        if self.paxos.pending_value is None and \
-                not self.paxos.proposals and not self._proposing:
-            acks, self._pending_acks = self._pending_acks, []
-            for origin, addr, tid, retval, out, data, holder in acks:
-                if holder is not None:
-                    trk, phase = holder
-                    if phase == "commit":
-                        trk.span_end("paxos.commit")
-                    trk.mark_event("acked")
-                    trk.finish()
-                    if holder in self._cmd_ops:
-                        self._cmd_ops.remove(holder)
-                self._ack_to(origin, addr, tid, retval, out, data)
+        # an ack whose version has committed goes out; with nothing left
+        # in flight every held ack does (a queued service may have had
+        # no pending to propose, so `need` is a bound, not an exact
+        # version)
+        idle = self.paxos.pending_value is None and \
+            not self.paxos.proposals and not self._proposing
+        acks, keep = [], []
+        for a in self._pending_acks:
+            (acks if idle or a[-1] <= version else keep).append(a)
+        self._pending_acks = keep
+        for origin, addr, tid, retval, out, data, holder, _v in acks:
+            if holder is not None:
+                trk, phase = holder
+                if phase == "commit":
+                    trk.span_end("paxos.commit")
+                trk.mark_event("acked")
+                trk.finish()
+                if holder in self._cmd_ops:
+                    self._cmd_ops.remove(holder)
+            self._ack_to(origin, addr, tid, retval, out, data)
 
     def _drain_proposing(self) -> None:
         while self._proposing and self.paxos.is_writeable():
@@ -602,10 +609,16 @@ class Monitor(Dispatcher):
             # ack only after the commit lands so a follow-up read
             # observes the new state (wait_for_commit semantics); the
             # tracked op rides along, the paxos tracer hook stamping
-            # its paxos.propose / paxos.commit spans as rounds pass
+            # its paxos.propose / paxos.commit spans as rounds pass.
+            # The ack waits for the last value queued now, each a
+            # version of its own, and no longer: later proposals do
+            # not hold it
+            p = self.paxos
+            need = p.last_committed + (p.pending_value is not None) + \
+                len(p.proposals) + len(self._proposing)
             self._pending_acks.append(
                 (origin, origin_addr, msg.tid, retval, out, data,
-                 holder))
+                 holder, need))
         else:
             self._cmd_ops.remove(holder)
             trk.finish()

@@ -31,7 +31,8 @@ The kernels are built at first use with nvcc for sm_90a, one shared
 library with a plain C interface per source (all sources compile in
 parallel), into ``ceph_tpu_torch/_build/`` under a name keyed by a hash
 of the source, the shared headers (``csrc/*.cuh``) and the flags, and
-bound with ctypes.  ``launches`` counts the launches of each kernel,
+bound with ctypes.  A file lock there makes processes that build at
+once share one compile.  ``launches`` counts the launches of each kernel,
 one key per kernel entry point, so a run can show which kernels its
 path went through.
 """
@@ -40,6 +41,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -145,8 +147,19 @@ def library_path(name: str) -> str:
 def build(names=None) -> dict[str, str]:
     """Compile every missing kernel library, one nvcc per source, all
     started together.  Returns nvcc's diagnostics per compiled source;
-    raises if any compile fails."""
+    raises if any compile fails.  Processes that build at once (the OSD
+    processes of one host, started cold) take a lock on a file in
+    BUILD_DIR: one compiles, the others wait and find the libraries."""
     os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, "build.lock"), "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return _compile_missing(names)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _compile_missing(names) -> dict[str, str]:
     procs = {}
     for name in names or SOURCES:
         so = library_path(name)

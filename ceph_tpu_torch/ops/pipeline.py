@@ -605,6 +605,7 @@ class EcDevicePipeline:
         self._stalled = False              # lanes wedged: device batches fail
         self._running = False
         self._threads: list = []
+        self._holders = 0                  # daemons holding the lanes
         self._c = {
             "dispatches": 0, "dev_dispatches": 0, "host_dispatches": 0,
             # device dispatches per channel kind (its key's first
@@ -673,10 +674,28 @@ class EcDevicePipeline:
         """Start the dispatcher and build the lanes now rather than at
         the first submit (an OSD at boot); returns the lane count.
         Raises when the package device is cuda and no card is
-        visible."""
+        visible.  The caller holds the lanes until release_lanes()."""
         with self._lock:
             self._ensure_threads()
-        return len(self._ensure_devset().lanes)
+        n = len(self._ensure_devset().lanes)
+        with self._lock:
+            self._holders += 1
+        return n
+
+    def release_lanes(self, timeout: float = 30.0) -> None:
+        """A daemon that held the lanes shuts down.  The last holder in
+        the process drains the queued and in-flight work, joins the
+        kernel warm-ups and stops the pipeline: an OSD process must not
+        reach interpreter exit with a thread inside torch (the C++
+        runtime then aborts it, SIGABRT instead of exit 0)."""
+        with self._lock:
+            self._holders = max(0, self._holders - 1)
+            if self._holders:
+                return
+        end = time.monotonic() + timeout
+        self.flush(timeout)
+        join_warm_ups(max(0.0, end - time.monotonic()))
+        self.stop()
 
     def reset_devices(self, device_shards=_UNSET) -> None:
         """Rebuild the device set on next dispatch: clears quarantine
@@ -1806,6 +1825,29 @@ _global: EcDevicePipeline | None = None
 _glock = threading.Lock()
 
 
+_warm_threads: list[threading.Thread] = []
+
+
+def start_warm_up(target, args: tuple = (), name: str = "ec-kernel-warm"
+                  ) -> None:
+    """Run a kernel warm-up (a first launch at a new shape) on a daemon
+    thread that release_lanes() joins."""
+    t = threading.Thread(target=target, args=args, daemon=True, name=name)
+    with _glock:
+        _warm_threads[:] = [w for w in _warm_threads if w.is_alive()]
+        _warm_threads.append(t)
+    t.start()
+
+
+def join_warm_ups(timeout: float) -> None:
+    """Wait up to `timeout` seconds for the running warm-ups."""
+    end = time.monotonic() + timeout
+    with _glock:
+        threads = list(_warm_threads)
+    for t in threads:
+        t.join(max(0.0, end - time.monotonic()))
+
+
 def get() -> EcDevicePipeline:
     global _global
     if _global is None:
@@ -1916,9 +1958,8 @@ def crc_fn_if_ready(size: int, shape: tuple, device):
                 f"{type(err).__name__}: {err}") from err
         if key not in _crc_warming:
             _crc_warming.add(key)
-            threading.Thread(target=_warm_crc,
-                             args=(size, tuple(shape), device),
-                             daemon=True, name="ec-crc-warm").start()
+            start_warm_up(_warm_crc, (size, tuple(shape), device),
+                          "ec-crc-warm")
         return None
 
 
@@ -1977,9 +2018,8 @@ def _crc_mesh_fn(size: int):
                         f"{type(err).__name__}: {err}") from err
                 if key not in _crc_mesh_warming:
                     _crc_mesh_warming.add(key)
-                    threading.Thread(
-                        target=_warm_crc_mesh, args=key, daemon=True,
-                        name="ec-crc-mesh-warm").start()
+                    start_warm_up(_warm_crc_mesh, key,
+                                  "ec-crc-mesh-warm")
                 return None
         return (fn(batch),), None
 

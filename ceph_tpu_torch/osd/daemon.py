@@ -169,6 +169,7 @@ class OSDDaemon(Dispatcher, RecoveryService, ScrubService):
         self._scrub_slots = threading.BoundedSemaphore(
             max(1, int(self.conf.osd_max_scrubs)))
         self._stopped = False
+        self._lanes_held = False
 
         # observability: perf counters + op tracing + admin socket
         # (common/perf_counters.h, common/TrackedOp.h,
@@ -491,6 +492,11 @@ class OSDDaemon(Dispatcher, RecoveryService, ScrubService):
         # shared dispatcher counters + each codec's measured-routing
         # EMAs (amortized sec/byte per bucket, crossover estimate)
         out["ec_pipeline"] = ec_pipeline.stats()
+        # the process's launches of each hand-written kernel entry
+        # point (ops/cuda_ec.py): an OSD in its own process is the
+        # only launcher there
+        from ..ops import cuda_ec
+        out["ec_pipeline"]["launches"] = cuda_ec.launch_counts()
         for name, codec in self._ec_codecs.items():
             backend = getattr(codec, "backend", None)
             if hasattr(backend, "perf_snapshot"):
@@ -508,6 +514,7 @@ class OSDDaemon(Dispatcher, RecoveryService, ScrubService):
         # package device with no card this raises here, at boot
         from ..ops import pipeline as ec_pipeline
         ec_pipeline.get().start_lanes()
+        self._lanes_held = True
         self.msgr.start()
         self.op_wq.start()
         self.recovery_wq.start()
@@ -544,6 +551,10 @@ class OSDDaemon(Dispatcher, RecoveryService, ScrubService):
             self.store.umount()
         except CrashPoint:
             pass                   # frozen store: nothing to flush
+        if self._lanes_held:
+            from ..ops import pipeline as ec_pipeline
+            self._lanes_held = False
+            ec_pipeline.get().release_lanes()
 
     # -- crash plane -------------------------------------------------------
 

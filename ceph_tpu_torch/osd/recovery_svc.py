@@ -1042,29 +1042,39 @@ class RecoveryService:
             return dict(out)
 
     def ec_get_omap(self, pgid: PgId, oid: str, acting: list[int]) -> dict:
-        """The omap from shard 0's holder, or, while that holder is
-        down, from the lowest live shard's: writes set it on every
-        shard (the remote path of an early round silently returned
-        {})."""
+        """The object's omap from the lowest live shard whose file is at
+        the object's current version: writes set it on every shard (the
+        remote path of an early round silently returned {}).  A holder
+        without such a file (a member that lags, or whose role moved)
+        is passed over: its empty or older omap must not read as the
+        object's.  No holder with one: EAGAIN, the client resends."""
         pg = self.get_pg(pgid)
+        with pg.lock:
+            cur = pg.pglog.objects.get(oid)
+        if cur is None:
+            raise StoreError(2, f"{oid}: no such object")
         live = [(s, o) for s, o in enumerate(acting) if o != ITEM_NONE]
         if not live:
             raise StoreError(5, "EC omap: no shard holder up")
-        shard, holder = live[0]
-        if holder == self.whoami:
-            try:
-                return self.store.omap_get(pg.cid,
-                                           pg._ec_local_shard(oid, shard))
-            except StoreError:
-                return {}
-        reply = self._call(holder, MPGInfo(
-            op="ec_omap", pgid=str(pgid), oid=oid, shard=shard,
-            epoch=self.osdmap.epoch), timeout=5.0)
-        if reply is None:
-            raise StoreError(110, "EC omap fetch timed out")
-        if reply.info.get("unknown"):
-            raise StoreError(11, "EC omap: holder has no pg yet")
-        return dict(reply.info.get("omap", {}))
+        for shard, holder in live:
+            if holder == self.whoami:
+                name = pg._ec_local_shard(oid, shard)
+                try:
+                    if _parse_ev(self.store.getattr(
+                            pg.cid, name, VER_KEY)) == tuple(cur):
+                        return self.store.omap_get(pg.cid, name)
+                except StoreError:
+                    pass
+                continue
+            reply = self._call(holder, MPGInfo(
+                op="ec_omap", pgid=str(pgid), oid=oid, shard=shard,
+                epoch=self.osdmap.epoch), timeout=5.0)
+            if reply is None or reply.info.get("unknown"):
+                continue
+            ver = reply.info.get("ver")
+            if ver is not None and tuple(ver) == tuple(cur):
+                return dict(reply.info.get("omap", {}))
+        raise StoreError(11, f"EC omap of {oid}: no shard at {tuple(cur)}")
 
     # -- EC shard-role audit -----------------------------------------------
     #

@@ -66,8 +66,8 @@ every batch shape the windows reach, three counted windows run:
      must then sit rebuilt by recovery on its new holder, equal to the
      lost bytes (no scrub repair: a shard left unrebuilt fails the phase).
 
-Phase 10 drives the front doors on a fresh cluster of phase 9's shape
-(3 mons, 13 MemStore OSDs, one marked out): an EC
+Phase 10 drives the front doors on phase 9's cluster (3 mons, 13
+MemStore OSDs, the one phase 9 killed marked out): an EC
 base pool "doors" (phase 9's code with host_cutover 1, the 4 KiB unit,
 pg_num 32) behind a replicated writeback cache tier "doors-hot" (a hit
 set, target_max_objects 8), a replicated CephFS metadata pool, one MDS
@@ -128,6 +128,46 @@ gf_encode and crc32c_chain.  A file whose cases all route to the host
 at their sizes prints 0 launches; that is a finding, not a failure.
 `--suite-only` runs this phase alone.
 
+Phase 14 runs phase 9's cluster as Ceph deploys it: 3 mons, 13 MemStore
+OSDs and a mgr, each a process started with `python -m
+ceph_tpu_torch.daemons` from one conf file (cluster_conf()'s keys, the
+admin sockets under _scratch/daemons/asok, each OSD's HBM cache 4 GiB /
+13 so that the card holds phase 9's 4 GiB in all), and 8 client
+processes, each with its own Rados from the conf.  The pool, workload
+and seed are phase 9's: the profile set and the pool created through the
+port's ceph CLI, 64 x 4 MiB written, read back bit-exact in the client
+processes, 100,001 B appended to 8.  Before the windows every OSD
+process warms the batch shapes they can give it (warm_shapes: encodes
+of 128 and 256 stripes, decodes of 1..m rows at both, the decodes forced
+by FaultSet eio rules on other objects over the admin sockets), and each
+counted window is preceded by uncounted passes of the same ops on the
+same objects (other bytes) until they serve no batch on a host.
+Windows: writes, reads and appends (nvidia-smi's compute apps sampled
+meanwhile: every OSD pid must hold the card); then an xattr on every
+object (a version no HBM cache holds: the windows after it go to the
+shards, as phase 9's do after its cache clears); deep scrub of every PG
+(`pg deep-scrub`, each result read from the primary's log), no
+inconsistency; SIGKILL of an OSD drawn from the seed among the primaries
+of the objects' PGs, marked down by the mon from its peers' failure
+reports alone, every object read degraded, `ceph osd out` through the
+CLI and recovery until every lost shard is rebuilt and the PGs are
+clean; SIGKILL of a second OSD, one now holding rebuilt shards, and
+every object read degraded again.  Each window's device dispatches and
+kernel launches are read from every OSD's `perf dump` over its admin
+socket and summed: device dispatches above 0 for the kinds the window
+runs, no batch on a host, and each kernel entry point launched once per
+device dispatch of its kind.  At the end every daemon must exit 0 on
+SIGTERM within 30 s.  It prints client write, read and degraded-read
+GB/s and p50/p99, the share of the degraded reads' stripes that were
+decoded, recovery seconds, scrub GB/s, boot and warm-up seconds, stripes
+per write dispatch per OSD, each process's card memory, the kernel
+launches, and a fresh client's first `health` seconds after each window.
+`--daemons-only` runs this phase alone.
+
+After each window of phase 9 a fresh client's first `health` is timed
+(client creation included); one that waits past 5 s dumps every
+thread's stack to _scratch/mon_stacks_<window>.txt.
+
 In each window of phases 9, 10 and 12 every kernel entry point launched
 exactly once per device dispatch of its kind (pipeline.stats()
 dev_dispatches_enc/_dec/_crc), at least one device dispatch ran (except
@@ -148,9 +188,13 @@ prints no result.
 from __future__ import annotations
 
 import hashlib
+import itertools
 import json
+import os
+import signal
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -876,17 +920,20 @@ CLUSTER_TIMEOUT = 600.0
 CLUSTER_RECOVERY_TIMEOUT = 300.0
 
 
+CLUSTER_CONF = {
+    # MiniCluster's own defaults
+    "mon_tick_interval": 0.5, "osd_heartbeat_interval": 0.5,
+    "osd_heartbeat_grace": 8.0, "mon_osd_min_down_reporters": 2,
+    # the killed OSD is marked out by hand, after the degraded reads
+    "mon_osd_down_out_interval": 1e6,
+    "osd_ec_hbm_cache_bytes": HBM_CACHE_BYTES,
+    "osd_op_history_size": 4 * CLUSTER_OBJECTS,
+    "objecter_op_timeout": 120.0}
+
+
 def cluster_conf():
     from ceph_tpu_torch.utils.config import Config
-    return Config({
-        # MiniCluster's own defaults
-        "mon_tick_interval": 0.5, "osd_heartbeat_interval": 0.5,
-        "osd_heartbeat_grace": 8.0, "mon_osd_min_down_reporters": 2,
-        # the killed OSD is marked out by hand, after the degraded reads
-        "mon_osd_down_out_interval": 1e6,
-        "osd_ec_hbm_cache_bytes": HBM_CACHE_BYTES,
-        "osd_op_history_size": 4 * CLUSTER_OBJECTS,
-        "objecter_op_timeout": 120.0})
+    return Config(CLUSTER_CONF)
 
 
 def percentiles_ms(lat) -> dict:
@@ -1110,6 +1157,71 @@ def scrub_all(cluster, pool_id, threads: int = CLUSTER_CLIENTS) -> dict:
         return dict(pool.map(one, pgids))
 
 
+MON_PROBE_DUMP_S = 5.0       # a first `health` slower than this dumps
+MON_PROBE_DUMP_EVERY_S = 15.0  # every thread's stack, and again after this
+
+
+def stack_dump(path: str, label: str) -> list:
+    """Append every thread's stack to `path`; returns, for each thread
+    with a frame in the mon package, its name and innermost frames."""
+    import traceback
+    names = {t.ident: t.name for t in threading.enumerate()}
+    mon = []
+    with open(path, "a") as f:
+        f.write(f"=== {label}\n")
+        for ident, frame in sys._current_frames().items():
+            stack = traceback.extract_stack(frame)
+            f.write(f"--- {names.get(ident, ident)}\n")
+            f.write("".join(traceback.format_list(stack)))
+            if any("/mon/" in fr.filename for fr in stack):
+                mon.append([names.get(ident, str(ident))] + [
+                    f"{fr.filename.rsplit('/', 2)[-1]}:{fr.lineno} {fr.name}"
+                    for fr in stack[-3:]])
+    return mon
+
+
+def first_health(make_client, name: str, stage: str) -> dict:
+    """Seconds from creating client `name` (make_client(name)) to its
+    first answered `health` (client creation included, as
+    tests/mon_after_windows.py's first_command), and the mon that
+    answered.  While it waits past MON_PROBE_DUMP_S, a watchdog dumps
+    every thread of this process (with phase 9's in-process cluster,
+    the mons' too) to _scratch/mon_stacks_<stage>.txt, and again every
+    MON_PROBE_DUMP_EVERY_S: the leader's threads blocked (the same
+    frames each time) or runnable."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(root, "_scratch", f"mon_stacks_{stage}.txt")
+    done, dumps = threading.Event(), []
+
+    def watchdog():
+        wait = MON_PROBE_DUMP_S
+        while not done.wait(wait):
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            dumps.append(stack_dump(path, f"{stage} after "
+                                    f"{time.perf_counter() - t0:.1f} s"))
+            print(f"chip_smoke: mon probe {stage} waiting "
+                  f"{time.perf_counter() - t0:.1f} s; mon threads: "
+                  f"{json.dumps(dumps[-1])}", file=sys.stderr, flush=True)
+            wait = MON_PROBE_DUMP_EVERY_S
+
+    t0 = time.perf_counter()
+    w = threading.Thread(target=watchdog, daemon=True)
+    w.start()
+    try:
+        rados = make_client(name)
+        try:
+            rv, _out, _ = rados.mon_command({"prefix": "health"})
+        finally:
+            rados.shutdown()
+    finally:
+        done.set()
+        w.join()
+    if rv != 0:
+        raise AssertionError(f"health after {stage}: {rv} {_out}")
+    return {"s": time.perf_counter() - t0, "mon": str(rados.monc._cur_mon),
+            "stack_dumps": len(dumps)}
+
+
 def phase_cluster(rng, cuda_ec, ec_pipeline, hbm_cache, native, crc_mod,
                   device, tally):
     from ceph_tpu_torch.osd.pglog import HINFO_KEY
@@ -1171,6 +1283,8 @@ def phase_cluster(rng, cuda_ec, ec_pipeline, hbm_cache, native, crc_mod,
                 raise AssertionError(f"append to obj{i} != payload+delta")
         d_write = cluster_window(cuda_ec, ec_pipeline, tally, before,
                                  "cluster writes, reads and appends")
+        probes = {"writes_reads_appends": first_health(
+            cluster.client, "client.probe_writes", "writes")}
         try:
             busy, n_events = device_busy_share(prof, w_wall)
         except (AttributeError, TypeError, ValueError) as e:
@@ -1186,6 +1300,7 @@ def phase_cluster(rng, cuda_ec, ec_pipeline, hbm_cache, native, crc_mod,
                 w_lat), read_gbs=nbytes / r_wall / 1e9,
             read_lat_ms=percentiles_ms(r_lat),
             read_cache_bytes_served=hbm_cache.stats()["read_bytes_served"],
+            first_health=probes["writes_reads_appends"],
             device_busy_share=busy, profiler_device_events=n_events,
             write_window=d_write, write_trace=write_spans(cluster),
             shards_checked_objects=len(sample),
@@ -1225,8 +1340,11 @@ def phase_cluster(rng, cuda_ec, ec_pipeline, hbm_cache, native, crc_mod,
             f"pg_{pgid}", name, 4096, good))
         d_scrub = cluster_window(cuda_ec, ec_pipeline, tally, before,
                                  "cluster deep scrub")
+        probes["scrub"] = first_health(cluster.client,
+                                       "client.probe_scrub", "scrub")
         shard_bytes = sum(len(finals[i]) for i in finals) * (K + M) // K
         step = dict(scrub_gbs=shard_bytes / s_wall / 1e9,
+                    first_health=probes["scrub"],
                     scrub_checked=checked,
                     scrub_window=d_scrub, corrupted_flagged=found,
                     elapsed_s=time.perf_counter() - t_start)
@@ -1258,9 +1376,18 @@ def phase_cluster(rng, cuda_ec, ec_pipeline, hbm_cache, native, crc_mod,
             if bytes(b) != finals[i]:
                 raise AssertionError(f"degraded read of obj{i} != payload")
         back = None
+        mid = ec_pipeline.stats()
+        d_deg = {k: mid[k] - before[k] for k in (
+            "dispatches", "dev_dispatches_dec", "stripes")}
+        probes["degraded_reads"] = first_health(
+            cluster.client, "client.probe_degraded", "degraded_reads")
         emit("cluster_degraded_reads",
+             first_health=probes["degraded_reads"],
              degraded_read_gbs=sum(map(len, finals.values())) / g_wall / 1e9,
              degraded_read_lat_ms=percentiles_ms(g_lat),
+             degraded_decode_share=decode_share(d_deg, object_stripes(
+                 objects(range(CLUSTER_OBJECTS), range(CLUSTER_APPENDS)))),
+             degraded_window=d_deg,
              elapsed_s=time.perf_counter() - t_start)
         t0 = time.perf_counter()
         cluster.mark_osd_out(victim)
@@ -1278,6 +1405,8 @@ def phase_cluster(rng, cuda_ec, ec_pipeline, hbm_cache, native, crc_mod,
                                  f"{absent} {unclean(cluster, pool_id)}")
         d_rec = cluster_window(cuda_ec, ec_pipeline, tally, before,
                                "cluster degraded reads and recovery")
+        probes["recovery"] = first_health(
+            cluster.client, "client.probe_recovery", "recovery")
         osdmap = cluster.leader().osdmon.osdmap
         for i, (shard, data) in lost.items():
             pg = osdmap.object_to_pg(pool_id, f"obj{i}")
@@ -1300,7 +1429,7 @@ def phase_cluster(rng, cuda_ec, ec_pipeline, hbm_cache, native, crc_mod,
                    / g_wall / 1e9, degraded_read_lat_ms=percentiles_ms(
                        g_lat), victim=victim, recovery_s=recovery_s,
                    rebuilt_shards_checked=len(lost),
-                   recovery_window=d_rec,
+                   recovery_window=d_rec, first_health=probes,
                    codecs_degraded=degraded_codecs(cluster),
                    routing=codec_routing(cluster),
                    elapsed_s=time.perf_counter() - t_start)
@@ -1308,10 +1437,11 @@ def phase_cluster(rng, cuda_ec, ec_pipeline, hbm_cache, native, crc_mod,
         if step["codecs_degraded"]:
             raise AssertionError("an OSD's codec degraded to the host")
         out.update(step)
-        return out
-    finally:
+        return out, cluster
+    except BaseException:
         cluster.stop()
         ec_pipeline.get().stop()
+        raise
 
 
 # Phase 10: the front doors (S3, RBD, CephFS) over a writeback cache
@@ -1409,16 +1539,19 @@ def wait_ticking(cluster, pred, timeout: float, what: str) -> float:
     return time.perf_counter() - t0
 
 
-def mon_command_ok(cluster, admin, cmd: dict) -> None:
+def mon_command_ok(cluster, admin, cmd: dict) -> int:
     """A mon command that must succeed; retried while the mons answer
-    ETIMEDOUT or EAGAIN (a paxos round still busy with the new pools)."""
+    ETIMEDOUT or EAGAIN (a paxos round still busy with the new pools).
+    Returns the retries."""
     end = time.monotonic() + CLUSTER_TIMEOUT
+    retries = 0
     while True:
         rv, msg, _ = admin.mon_command(cmd)
         if rv == 0:
-            return
+            return retries
         if rv not in (-110, -11) or time.monotonic() > end:
             raise AssertionError(f"{cmd}: {rv} {msg}")
+        retries += 1
         cluster.tick(0.25)
 
 
@@ -1611,64 +1744,74 @@ class Doors:
                 raise AssertionError(f"{f"/file{i}"}: size {size}")
 
 
-def phase_doors(rng, cuda_ec, ec_pipeline, hbm_cache, native, crc_mod,
-                device, tally):
-    from ceph_tpu_torch.vstart import MiniCluster
-    # phase 9's own cluster is not reused: after its windows the leader
-    # mon took new client connections and commands late (80-100 s of
-    # command timeouts and MDS monc hunting on the H100), so phase 10
-    # boots one of the same shape, one of its 13 OSDs out
-    cluster = MiniCluster(num_mons=CLUSTER_MONS, num_osds=CLUSTER_OSDS,
-                          conf=cluster_conf())
+def phase_doors(cluster, out_osd, rng, cuda_ec, ec_pipeline, hbm_cache,
+                native, crc_mod, device, tally):
+    """Phase 10 on phase 9's cluster, `out_osd` its OSD killed and
+    marked out; stops the cluster."""
     try:
-        return doors_windows(cluster, rng, cuda_ec, ec_pipeline, hbm_cache,
-                             native, crc_mod, device, tally)
+        return doors_windows(cluster, out_osd, rng, cuda_ec, ec_pipeline,
+                             hbm_cache, native, crc_mod, device, tally)
     finally:
         cluster.stop()
         ec_pipeline.get().stop()
 
 
-def doors_windows(cluster, rng, cuda_ec, ec_pipeline, hbm_cache, native,
-                  crc_mod, device, tally):
+def doors_windows(cluster, out_osd, rng, cuda_ec, ec_pipeline, hbm_cache,
+                  native, crc_mod, device, tally):
     from ceph_tpu_torch.osd.pglog import HINFO_KEY
     from ceph_tpu_torch.utils import denc
 
     t_start = time.perf_counter()
     setup = {}                   # seconds of each setup step
-    cluster.start(timeout=120.0)
-    admin = cluster.client()
-    out_osd = int(rng.integers(CLUSTER_OSDS))
-    cluster.mark_osd_out(out_osd)
-    setup["boot_s"] = time.perf_counter() - t_start
+    hbm_cache.get().clear()
+    admin = cluster.client("client.doors_admin")
+    setup["first_health"] = first_health(
+        cluster.client, "client.probe_doors", "doors_setup")
     if DOORS_TARGET_MAX_OBJECTS >= DOORS_PG_NUM:
         raise ValueError("the agent would keep an object in each tier PG")
-    admin.create_ec_pool(DOORS_POOL, DOORS_PROFILE_NAME, DOORS_PROFILE,
-                         pg_num=DOORS_PG_NUM)
-    admin.create_pool(DOORS_HOT, pg_num=DOORS_PG_NUM)
-    admin.create_pool(DOORS_META, pg_num=DOORS_META_PG_NUM)
-    base_id = admin.open_ioctx(DOORS_POOL).pool_id
-    hot_id = admin.open_ioctx(DOORS_HOT).pool_id
-    cluster.wait_for_clean(CLUSTER_TIMEOUT)
-    setup["pools_s"] = time.perf_counter() - t_start - sum(setup.values())
+
+    def step(name: str, fn) -> None:
+        t0 = time.perf_counter()
+        fn()
+        setup[f"{name}_s"] = time.perf_counter() - t0
+
+    def pools():
+        admin.create_ec_pool(DOORS_POOL, DOORS_PROFILE_NAME, DOORS_PROFILE,
+                             pg_num=DOORS_PG_NUM)
+        admin.create_pool(DOORS_HOT, pg_num=DOORS_PG_NUM)
+        admin.create_pool(DOORS_META, pg_num=DOORS_META_PG_NUM)
+        cluster.wait_for_clean(CLUSTER_TIMEOUT)
+
     settings = {"target_max_objects": str(DOORS_TARGET_MAX_OBJECTS),
                 **DOORS_HIT_SET}
-    for cmd in [{"prefix": "osd tier add", "pool": DOORS_POOL,
-                 "tierpool": DOORS_HOT},
-                {"prefix": "osd tier cache-mode", "pool": DOORS_HOT,
-                 "mode": "writeback"},
-                {"prefix": "osd tier set-overlay", "pool": DOORS_POOL,
-                 "overlaypool": DOORS_HOT}] + [
-                {"prefix": "osd pool set", "pool": DOORS_HOT, "var": k,
-                 "val": v} for k, v in settings.items()]:
-        mon_command_ok(cluster, admin, cmd)
-    setup["tier_s"] = time.perf_counter() - t_start - sum(setup.values())
-    cluster.start_mds("a", metadata_pool=DOORS_META, data_pool=DOORS_POOL)
-    gw = cluster.start_rgw(access_key=DOORS_ACCESS, secret_key=DOORS_SECRET,
-                           data_pool=DOORS_POOL)
-    setup["daemons_s"] = time.perf_counter() - t_start - sum(setup.values())
+
+    def tier():
+        for cmd in [{"prefix": "osd tier add", "pool": DOORS_POOL,
+                     "tierpool": DOORS_HOT},
+                    {"prefix": "osd tier cache-mode", "pool": DOORS_HOT,
+                     "mode": "writeback"},
+                    {"prefix": "osd tier set-overlay", "pool": DOORS_POOL,
+                     "overlaypool": DOORS_HOT}] + [
+                    {"prefix": "osd pool set", "pool": DOORS_HOT, "var": k,
+                     "val": v} for k, v in settings.items()]:
+            setup["mon_retries"] = setup.get("mon_retries", 0) + \
+                mon_command_ok(cluster, admin, cmd)
+
+    gws = []
+    step("pools", pools)
+    base_id = admin.open_ioctx(DOORS_POOL).pool_id
+    hot_id = admin.open_ioctx(DOORS_HOT).pool_id
+    step("tier", tier)
+    step("daemons", lambda: (
+        cluster.start_mds("a", metadata_pool=DOORS_META,
+                          data_pool=DOORS_POOL),
+        gws.append(cluster.start_rgw(access_key=DOORS_ACCESS,
+                                     secret_key=DOORS_SECRET,
+                                     data_pool=DOORS_POOL))))
+    gw = gws[0]
     warm_s = doors_warm(cluster, base_id, ec_pipeline, device)
-    coding = cluster.osds[0].get_ec_codec(
-        cluster.osds[0].osdmap.pools[base_id]).coding_matrix
+    osd = next(iter(cluster.osds.values()))
+    coding = osd.get_ec_codec(osd.osdmap.pools[base_id]).coding_matrix
     t0 = time.perf_counter()
     doors = Doors(cluster, rng, gw)
     setup["clients_s"] = time.perf_counter() - t0
@@ -2326,6 +2469,883 @@ def phase_reference_suite(cuda_ec, ec_pipeline, hbm_cache, device):
     return rows
 
 
+# -- phase 14: the daemons as processes ---------------------------------------
+#
+# Phase 9's cluster as Ceph deploys it (upstream src/vstart.sh, and every
+# production cluster): each mon, OSD and the mgr in a process of its own,
+# started through the port's entry point `python -m ceph_tpu_torch.daemons`
+# from one conf file, and 8 client processes, each with its own Rados from
+# that conf (tools.connect_from_conf).  The daemons run on the real clock:
+# a killed OSD is marked down by the mon from its peers' failure reports.
+# The launcher lives here and in the tests, not in the package.
+
+DAEMON_MAIN = ("-m", "ceph_tpu_torch.daemons")
+DAEMONS_FSID = "5e2b3c1a-0000-4000-8000-00000000000e"
+DAEMONS_BOOT_TIMEOUT = 300.0
+DAEMONS_STOP_TIMEOUT = 30.0         # SIGTERM to exit, each daemon
+DAEMONS_CLIENT_TIMEOUT = 600.0      # one client process's ops of a window
+DAEMONS_WARM_ROUNDS = 8             # uncounted passes at most, until
+DAEMONS_WARM_CLEAN = 2              # this many in a row are host-free
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+WARM_TAG = 2                         # the warm-up passes' payloads
+
+
+def object_payload(seed: int, i: int, nbytes: int, tag: int = 0) -> bytes:
+    """The seeded bytes of object i (tag + 1: its appended tail)."""
+    return np.random.default_rng([seed, tag, i]).integers(
+        0, 256, nbytes, dtype=np.uint8).tobytes()
+
+
+class ProcCluster:
+    """The daemons of one cluster, each a process started with
+    `python <main> <role> ... -c <conf>` (main: DAEMON_MAIN, or another
+    command line of the same entry point), its output in
+    `<workdir>/<name>.log` and its admin socket in `<workdir>/asok`.
+    `conf` holds the [global] keys beside fsid, mon host and
+    objectstore.  close() kills whatever still runs."""
+
+    def __init__(self, workdir: str, mons: int, osds: int, conf: dict,
+                 main=DAEMON_MAIN, env: dict | None = None,
+                 mgr: bool = True):
+        self.workdir = workdir
+        self.asok_dir = os.path.join(workdir, "asok")
+        os.makedirs(self.asok_dir, exist_ok=True)
+        self.mons = [chr(ord("a") + i) for i in range(mons)]
+        self.n_osds = osds
+        self.main = tuple(main)
+        self.mgr = mgr
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.cwd = root
+        self.env = dict(os.environ if env is None else env)
+        self.env["PYTHONPATH"] = root + os.pathsep + self.env.get(
+            "PYTHONPATH", "")
+        hosts = ",".join(f"127.0.0.1:{free_port()}" for _ in self.mons)
+        lines = ["[global]", f"fsid = {DAEMONS_FSID}",
+                 f"mon host = {hosts}", "objectstore = memstore",
+                 f"admin socket dir = {self.asok_dir}"]
+        lines += [f"{k} = {v}" for k, v in conf.items()]
+        self.conf_path = os.path.join(workdir, "ceph.conf")
+        with open(self.conf_path, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        self.procs: dict = {}
+        self.admin = None
+
+    def log_path(self, name: str) -> str:
+        return os.path.join(self.workdir, f"{name}.log")
+
+    def log(self, name: str) -> str:
+        with open(self.log_path(name), errors="replace") as f:
+            return f.read()
+
+    def asok(self, name: str) -> str:
+        return os.path.join(self.asok_dir, f"{name}.asok")
+
+    def spawn(self, name: str, args: list) -> None:
+        with open(self.log_path(name), "w") as log:
+            self.procs[name] = subprocess.Popen(
+                [sys.executable, *self.main, *args, "-c", self.conf_path],
+                cwd=self.cwd, env=self.env, stdout=log,
+                stderr=subprocess.STDOUT)
+
+    def wait_up(self, names, timeout: float) -> None:
+        """Until each daemon has printed its `<name> up at` line."""
+        end = time.monotonic() + timeout
+        for name in names:
+            while f"{name} up at" not in self.log(name):
+                rc = self.procs[name].poll()
+                if rc is not None or time.monotonic() > end:
+                    raise AssertionError(
+                        f"{name} did not come up (rc {rc}): "
+                        f"{self.log(name)[-3000:]}")
+                time.sleep(0.1)
+
+    def start(self, timeout: float = DAEMONS_BOOT_TIMEOUT,
+              on_up=None) -> float:
+        """The mons, then the mgr, then the OSDs, each group up before
+        the next (on_up(group) after each); returns the seconds until
+        every OSD is up in the mon's map."""
+        from ceph_tpu_torch.tools import connect_from_conf
+        t0 = time.perf_counter()
+        groups = [("mons", [(f"mon.{n}", ["mon", "--name", n])
+                            for n in self.mons])]
+        if self.mgr:
+            groups.append(("mgr", [("mgr.x", ["mgr", "--name", "x"])]))
+        groups.append(("osds", [(f"osd.{i}", ["osd", "--id", str(i)])
+                                for i in range(self.n_osds)]))
+        for group, daemons in groups:
+            for name, args in daemons:
+                self.spawn(name, args)
+            self.wait_up([name for name, _args in daemons], timeout)
+            if on_up is not None:
+                on_up(group)
+        self.admin = connect_from_conf(self.conf_path, "client.launcher")
+        self.wait_osds(lambda m: all(m.is_up(i)
+                                     for i in range(self.n_osds)),
+                       timeout, "every OSD up")
+        return time.perf_counter() - t0
+
+    def osdmap(self):
+        from ceph_tpu_torch.osd.osdmap import OSDMap
+        rv, out, data = self.admin.mon_command({"prefix": "osd dump"})
+        if rv != 0:
+            raise AssertionError(f"osd dump: {rv} {out}")
+        return OSDMap.decode(data)
+
+    def wait_osds(self, pred, timeout: float, what: str) -> float:
+        """Poll the mon's OSD map until pred(map); returns seconds."""
+        t0 = time.perf_counter()
+        while not pred(self.osdmap()):
+            if time.perf_counter() - t0 > timeout:
+                raise TimeoutError(what)
+            time.sleep(0.1)
+        return time.perf_counter() - t0
+
+    def wait_clean(self, pool_id: int, pg_num: int, timeout: float
+                   ) -> float:
+        """Until the mon's PG map has all `pg_num` PGs of the pool
+        active+clean; returns seconds."""
+        t0 = time.perf_counter()
+        while True:
+            rv, out, data = self.admin.mon_command({"prefix": "pg dump"})
+            if rv != 0:
+                raise AssertionError(f"pg dump: {rv} {out}")
+            stats = [st for pgid, st in json.loads(data).items()
+                     if pgid.split(".")[0] == str(pool_id)]
+            if len(stats) == pg_num and all(
+                    st.get("state") == "active+clean" for st in stats):
+                return time.perf_counter() - t0
+            if time.perf_counter() - t0 > timeout:
+                raise TimeoutError(f"pool {pool_id} not clean: "
+                                   f"{sorted(st.get('state') for st in stats)}")
+            time.sleep(0.25)
+
+    def perf(self, name: str) -> dict:
+        """`ceph daemon <asok> perf dump`, through the port's ceph CLI."""
+        import io
+        from ceph_tpu_torch.tools import ceph_cli
+        buf = io.StringIO()
+        ceph_cli.main(["daemon", self.asok(name), "perf", "dump"], out=buf)
+        return json.loads(buf.getvalue())
+
+    def kill(self, name: str) -> None:
+        self.procs[name].send_signal(signal.SIGKILL)
+        self.procs[name].wait(DAEMONS_STOP_TIMEOUT)
+
+    def stop(self, timeout: float = DAEMONS_STOP_TIMEOUT) -> dict:
+        """SIGTERM to every live daemon, the OSDs and the mgr first and
+        the mons after them; {name: exit code}, None for one that
+        outlived `timeout` and was killed."""
+        if self.admin is not None:
+            self.admin.shutdown()
+            self.admin = None
+        live = {n: p for n, p in self.procs.items() if p.poll() is None}
+        codes = {}
+        for group in ([n for n in live if not n.startswith("mon.")],
+                      [n for n in live if n.startswith("mon.")]):
+            for n in group:
+                live[n].send_signal(signal.SIGTERM)
+            for n in group:
+                try:
+                    codes[n] = live[n].wait(timeout)
+                except subprocess.TimeoutExpired:
+                    live[n].kill()
+                    live[n].wait()
+                    codes[n] = None
+        return codes
+
+    def close(self) -> None:
+        if self.admin is not None:
+            self.admin.shutdown()
+            self.admin = None
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def client_main(conf_path: str, name: str, pool: str, seed: int,
+                conn) -> None:
+    """One client process: its own Rados from the conf; runs each
+    (op, items, tag) it is sent, items being (oid, payload index, bytes,
+    appended bytes) as objects() makes them, with the payloads of `tag`
+    (object_payload), and answers (per-op seconds, errors)."""
+    from ceph_tpu_torch.tools import connect_from_conf
+    rados = connect_from_conf(conf_path, name)
+    try:
+        io = rados.open_ioctx(pool)
+        conn.send("ready")
+        while True:
+            msg = conn.recv()
+            if msg is None:
+                break
+            op, items, tag = msg
+            lat, errs = [], []
+            for oid, i, nbytes, tail in items:
+                t0 = time.perf_counter()
+                try:
+                    if op == "write":
+                        io.write_full(oid, object_payload(seed, i, nbytes,
+                                                          tag))
+                    elif op == "append":
+                        io.append(oid, object_payload(seed, i, tail,
+                                                      tag + 1))
+                    elif op == "xattr":
+                        io.set_xattr(oid, "tag", str(tag).encode())
+                    elif op == "remove":
+                        io.remove_object(oid)
+                    else:
+                        want = object_payload(seed, i, nbytes, tag)
+                        if tail:
+                            want += object_payload(seed, i, tail, tag + 1)
+                        if bytes(io.read(oid)) != want:
+                            errs.append(f"read of {oid} != its payload")
+                except Exception as e:   # noqa: BLE001 (sent back)
+                    errs.append(f"{op} {oid}: {e!r}")
+                lat.append(time.perf_counter() - t0)
+            conn.send((lat, errs))
+    finally:
+        rados.shutdown()
+
+
+def objects(idxs, appended=()) -> list:
+    """Client items of objects obj<i>: CLUSTER_OBJECT_BYTES each, with
+    CLUSTER_APPEND_BYTES appended to those in `appended`."""
+    return [(f"obj{i}", i, CLUSTER_OBJECT_BYTES,
+             CLUSTER_APPEND_BYTES if i in appended else 0) for i in idxs]
+
+
+class ClientProcs:
+    """`n` client processes (client_main); item j of a run goes to
+    client j % n."""
+
+    def __init__(self, conf_path: str, pool: str, n: int, seed: int):
+        import multiprocessing
+        ctx = multiprocessing.get_context("spawn")
+        self.conns, self.procs = [], []
+        try:
+            for t in range(n):
+                parent, child = ctx.Pipe()
+                p = ctx.Process(target=client_main, daemon=True,
+                                args=(conf_path, f"client.load{t}", pool,
+                                      seed, child))
+                p.start()
+                self.conns.append(parent)
+                self.procs.append(p)
+            for c in self.conns:
+                if not c.poll(DAEMONS_BOOT_TIMEOUT) or \
+                        c.recv() != "ready":
+                    raise AssertionError("a client process did not connect")
+        except BaseException:
+            self.close()
+            raise
+
+    def run(self, op: str, items, clients=None, tag=0):
+        """`op` ("write", "read", "append", "xattr", "remove") on `items`
+        with the payloads of `tag`, spread over the clients (or over the
+        first `clients`), concurrently; returns (wall seconds, per-op
+        seconds).  Raises the first error a client reported."""
+        n = clients or len(self.conns)
+        parts = [items[t::n] for t in range(n)]
+        t0 = time.perf_counter()
+        for c, part in zip(self.conns, parts):
+            c.send((op, part, tag))
+        lat, errs = [], []
+        for c, _part in zip(self.conns, parts):
+            if not c.poll(DAEMONS_CLIENT_TIMEOUT):
+                raise TimeoutError(f"{op}: a client process did not "
+                                   f"answer in {DAEMONS_CLIENT_TIMEOUT} s")
+            got, e = c.recv()
+            lat += got
+            errs += e
+        wall = time.perf_counter() - t0
+        if errs:
+            raise AssertionError(f"{op}: {errs[:4]}")
+        return wall, lat
+
+    def close(self) -> None:
+        for c in self.conns:
+            try:
+                c.send(None)
+            except OSError:
+                pass
+        for p in self.procs:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
+PIPE_COUNTERS = ("dispatches", "dev_dispatches", "host_dispatches",
+                 "dev_dispatches_enc", "dev_dispatches_dec",
+                 "dev_dispatches_crc", "stripes", "bytes_h2d", "bytes_d2h",
+                 "cache_hit", "cache_read_bytes_served")
+
+
+def osd_counters(cluster, osds) -> dict:
+    """{osd: its perf dump's ec_pipeline counters, its process's kernel
+    launches (launch_<kernel>) and recovery_pushes}."""
+    out = {}
+    for i in osds:
+        perf = cluster.perf(f"osd.{i}")
+        pipe = perf["ec_pipeline"]
+        out[i] = {k: pipe[k] for k in PIPE_COUNTERS}
+        out[i].update({f"launch_{name}": n
+                       for name, n in pipe["launches"].items()})
+        out[i]["recovery_pushes"] = perf["osd"]["recovery_pushes"]
+    return out
+
+
+def counters_delta(before: dict, after: dict) -> dict:
+    """Summed over the OSDs alive at both ends, with stripes per
+    dispatch, and per OSD the dispatches and stripes per dispatch."""
+    live = sorted(set(before) & set(after))
+    d = {k: sum(after[i][k] - before[i][k] for i in live)
+         for k in after[live[0]]}
+    d["stripes_per_dispatch"] = d["stripes"] / max(1, d["dispatches"])
+    d["per_osd"] = {i: [after[i]["dispatches"] - before[i]["dispatches"],
+                        (after[i]["stripes"] - before[i]["stripes"])
+                        / max(1, after[i]["dispatches"]
+                              - before[i]["dispatches"])]
+                    for i in live}
+    return d
+
+
+def window_launches(d: dict) -> dict:
+    """The kernel launches of a window's counters_delta."""
+    return {k[len("launch_"):]: v for k, v in d.items()
+            if k.startswith("launch_")}
+
+
+def daemons_window(cluster, osds, before: dict, what: str, kinds) -> dict:
+    """Close a counted window of phase 14: every OSD's counters read
+    over its admin socket, summed; device dispatches of each kind in
+    `kinds` ("enc", "dec", "crc") above 0, no stripe batch on a host,
+    and each kernel entry point launched in the OSD processes exactly
+    once per device dispatch of its kind (as cluster_window checks in
+    one process)."""
+    after = osd_counters(cluster, osds)
+    d = counters_delta(before, after)
+    want = {"gf_encode": d["dev_dispatches_dec"],
+            "gf_encode_crc": d["dev_dispatches_enc"],
+            "crc32c_segments": d["dev_dispatches_crc"],
+            "crc32c_chain": d["dev_dispatches_enc"]
+            + d["dev_dispatches_crc"]}
+    idle = [k for k in kinds if d[f"dev_dispatches_{k}"] < 1]
+    if idle or d["host_dispatches"] or window_launches(d) != want:
+        raise AssertionError(f"{what}: no device {idle} dispatch, host "
+                             f"batches, or launches != {want}: {d}")
+    return d
+
+
+def deep_scrub_procs(cluster, pool_id: int, timeout: float) -> tuple:
+    """`pg deep-scrub` of every PG of the pool, one PG at a time (the mon
+    command the ceph CLI sends; the mon hands it to the PG's primary),
+    each result read from the primary's log line `scrub <pgid>: {...}`;
+    returns (wall seconds, {pgid: result}).  One at a time: concurrent
+    scrubs coalesce in a shard holder's pipeline into row counts that
+    no warm-up pass can be sure to have met."""
+    import ast
+    import re
+    line = re.compile(r" 1 scrub (\S+): (\{.*\})\s*$")
+    osdmap = cluster.osdmap()
+    results: dict = {}
+    t0 = time.perf_counter()
+    for pg in osdmap.all_pgs():
+        if pg.pool != pool_id:
+            continue
+        pgid, log = str(pg), cluster.log_path(f"osd.{osdmap.pg_primary(pg)}")
+        offset = os.path.getsize(log)
+        rv, out, _ = cluster.admin.mon_command(
+            {"prefix": "pg deep-scrub", "pgid": pgid})
+        if rv != 0:
+            raise AssertionError(f"pg deep-scrub {pgid}: {rv} {out}")
+        while pgid not in results:
+            with open(log, errors="replace") as f:
+                f.seek(offset)
+                for text in f:
+                    m = line.search(text)
+                    if m and m.group(1) == pgid:
+                        results[pgid] = ast.literal_eval(m.group(2))
+            if time.perf_counter() - t0 > timeout:
+                raise TimeoutError(f"deep scrub of {pgid}: no result "
+                                   f"({len(results)} PGs done)")
+            time.sleep(0.01)
+    return time.perf_counter() - t0, results
+
+
+def cli(cluster, *words) -> str:
+    """The port's ceph CLI against the cluster's conf."""
+    import io
+    from ceph_tpu_torch.tools import ceph_cli
+    buf = io.StringIO()
+    rc = ceph_cli.main(["-c", cluster.conf_path, *words], out=buf)
+    if rc != 0:
+        raise AssertionError(f"ceph {' '.join(words)}: rc {rc}")
+    return buf.getvalue()
+
+
+def nvidia_smi(query: str) -> list:
+    """The rows of `nvidia-smi --query-<query> --format=csv,noheader,
+    nounits`, each a list of fields."""
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-{query}", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60).stdout
+    return [[f.strip() for f in line.split(",")]
+            for line in out.strip().splitlines()]
+
+
+def card_processes() -> dict:
+    """{pid: MiB} of the processes nvidia-smi lists on the card."""
+    return {int(pid): float(mib) for pid, mib in
+            nvidia_smi("compute-apps=pid,used_memory")}
+
+
+def card_used_mib() -> float:
+    """Device memory in use on card 0, all processes, MiB."""
+    return float(nvidia_smi("gpu=memory.used")[0][0])
+
+
+def lanes_on_card(cluster, osds) -> dict:
+    """{osd: [lane device, lane dispatches]} from each OSD's perf dump;
+    raises unless every OSD process dispatched on a CUDA lane."""
+    lanes = {}
+    for i in osds:
+        devs = cluster.perf(f"osd.{i}")["ec_pipeline"]["devices"]
+        lanes[i] = [[d["device"], d["dispatches"]] for d in devs.values()]
+        if not any(dev.startswith("cuda") and k > 0
+                   for dev, k in lanes[i]):
+            raise AssertionError(f"osd.{i} dispatched nothing on a card: "
+                                 f"{lanes[i]}")
+    return lanes
+
+
+def card_mib_report(card_mib: dict, seen: dict, pids: dict) -> dict:
+    """Card memory: nvidia-smi's memory.used after each group of daemons
+    came up and at its peak in the write window, the rise each group
+    brought (per OSD process: the OSDs' rise over their count), and
+    each daemon's own line of --query-compute-apps where it lists the
+    daemon's pid (a container's PID namespace can hide them)."""
+    rise = {g: card_mib[g] - card_mib[prev] for prev, g in
+            zip(("before", "mons", "mgr"), ("mons", "mgr", "osds"))
+            if g in card_mib and prev in card_mib}
+    return {"used": card_mib, "rise": rise,
+            "per_osd_at_boot": rise.get("osds", 0.0) / CLUSTER_OSDS,
+            "per_osd_in_writes": (card_mib.get("writes", 0.0)
+                                  - card_mib["mgr"]) / CLUSTER_OSDS,
+            "compute_apps": {str(k): v for k, v in seen.items()},
+            "by_pid": {nm: seen[pid] for nm, pid in pids.items()
+                       if pid in seen}}
+
+
+def lost_shards(osdmap, pool_id: int, victim: int, n: int) -> dict:
+    """{object index: shard position} of the victim's shards."""
+    out = {}
+    for i in range(n):
+        acting = osdmap.pg_to_up_acting_osds(
+            osdmap.object_to_pg(pool_id, f"obj{i}"))[1]
+        if victim in acting:
+            out[i] = acting.index(victim)
+    return out
+
+
+def primaries_of(osdmap, pool_id: int, n: int) -> list:
+    """The OSDs that are the primary of a PG holding one of the n
+    objects: killing one moves the degraded reads and rebuilds of its
+    PGs to their next primaries."""
+    return sorted({osdmap.pg_primary(osdmap.object_to_pg(pool_id,
+                                                         f"obj{i}"))
+                   for i in range(n)})
+
+
+SHAPE_PREFIX = "shape"              # the shape warm-up's objects
+
+
+def shape_faults(r: int) -> str:
+    """FaultSet `eio` rules failing the store reads of m shards of the
+    objects shape<r>_*: data shards 1..r and the last m - r parity
+    shards.  With its own shard 0 the primary then gathers exactly k
+    shards, and the read decodes r data rows."""
+    fail = list(range(1, r + 1)) + list(range(K + r, K + M))
+    return ";".join(f"eio osd.* {SHAPE_PREFIX}{r}_*.s{s}" for s in fail)
+
+
+def shape_objects(osdmap, pool_id: int, osds) -> list:
+    """Client items of the shape warm-up: for each OSD as the primary
+    and each r in 1..m, an object of phase 9's size (128 stripes) and
+    one of its appended size (132 stripes, the 256 bucket)."""
+    items = []
+    for osd in osds:
+        for r in range(1, M + 1):
+            names = (f"{SHAPE_PREFIX}{r}_{osd}_{j}" for j in
+                     itertools.count())
+            mine = (nm for nm in names if osdmap.pg_primary(
+                osdmap.object_to_pg(pool_id, nm)) == osd)
+            for nbytes in (CLUSTER_OBJECT_BYTES,
+                           CLUSTER_OBJECT_BYTES + CLUSTER_APPEND_BYTES):
+                items.append((next(mine), 10_000 + len(items), nbytes, 0))
+    return items
+
+
+def warm_shapes(cluster, clients, pool_id: int, osds) -> dict:
+    """Every OSD process warm, before the counted windows, at each batch
+    shape they can give it: the fused encode at 128 and 256 stripes (a
+    write of each size with the OSD as primary), and the decode of r = 1
+    .. m data rows at both (the rebuild reads and degraded reads of
+    windows 3 and 4 decode whichever rows the first k shards to answer
+    leave out; two 128-stripe decodes coalesce to 256).  The decodes
+    are forced through the OSDs' FaultSet (`faults install` over each
+    admin socket): eio rules on m shards of each object (shape_faults),
+    installed for the warm-up and cleared after it.  Each object gets an
+    xattr after its write, a version no HBM cache holds, so its reads
+    gather and decode.  Read passes until one serves no batch on a host
+    with every OSD decoding; the objects are removed at the end.
+    Returns the objects, read passes and seconds."""
+    from ceph_tpu_torch.utils.admin_socket import admin_command
+    t0 = time.perf_counter()
+    items = shape_objects(cluster.osdmap(), pool_id, osds)
+    clients.run("write", items, tag=WARM_TAG)
+    clients.run("xattr", items, tag=WARM_TAG)
+    spec = ";".join(shape_faults(r) for r in range(1, M + 1))
+    try:
+        for i in osds:
+            admin_command(cluster.asok(f"osd.{i}"), {
+                "prefix": "faults install", "rules": spec,
+                "source": "shapes"})
+        for passes in range(1, DAEMONS_WARM_ROUNDS + 1):
+            before = osd_counters(cluster, osds)
+            clients.run("read", items, tag=WARM_TAG)
+            after = osd_counters(cluster, osds)
+            dec = {i: after[i]["dev_dispatches_dec"]
+                   - before[i]["dev_dispatches_dec"] for i in osds}
+            if not counters_delta(before, after)["host_dispatches"] and \
+                    min(dec.values()) >= 2 * M:
+                break
+        else:
+            raise AssertionError(f"shape warm-up: host batches or too few "
+                                 f"decodes in every pass: {dec}")
+    finally:
+        for i in osds:
+            admin_command(cluster.asok(f"osd.{i}"), {
+                "prefix": "faults clear", "source": "shapes"})
+    clients.run("remove", items)
+    return {"objects": len(items), "read_passes": passes,
+            "s": time.perf_counter() - t0}
+
+
+def object_stripes(items) -> int:
+    """Stripes of the objects of client items."""
+    width = K * CLUSTER_UNIT
+    return sum(-(-(nbytes + tail) // width)
+               for _oid, _i, nbytes, tail in items)
+
+
+def decode_share(d: dict, stripes_read: int):
+    """The share of a read window's stripes that went through a decode
+    (its dispatches all decodes), None if other kinds ran."""
+    if d["dispatches"] != d["dev_dispatches_dec"]:
+        return None
+    return d["stripes"] / stripes_read
+
+
+def phase_daemons(rng):
+    """Phase 14 (see the module docstring)."""
+    import shutil
+    from ceph_tpu_torch.tools import connect_from_conf
+    root = os.path.dirname(os.path.abspath(__file__))
+    workdir = os.path.join(root, "_scratch", "daemons")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    t_start = time.perf_counter()
+    # each OSD process gets 1/13 of phase 9's shared 4 GiB HBM cache:
+    # the card holds the same cache in all
+    cluster = ProcCluster(workdir, CLUSTER_MONS, CLUSTER_OSDS, {
+        **CLUSTER_CONF,
+        "osd_ec_hbm_cache_bytes": HBM_CACHE_BYTES // CLUSTER_OSDS})
+    clients = None
+    osds = list(range(CLUSTER_OSDS))
+    n, nbytes = CLUSTER_OBJECTS, CLUSTER_OBJECT_BYTES
+    appended = set(range(CLUSTER_APPENDS))
+    every = objects(range(n), appended)
+    tails = objects(sorted(appended), appended)
+    stripes_read = object_stripes(every)
+    grace = float(CLUSTER_CONF["osd_heartbeat_grace"])
+    probes = {}
+    out = {"mons": CLUSTER_MONS, "osds": CLUSTER_OSDS, "mgrs": 1,
+           "pg_num": CLUSTER_PG_NUM, "profile": CLUSTER_PROFILE,
+           "objects": n, "object_bytes": nbytes,
+           "clients": CLUSTER_CLIENTS, "client_processes": True}
+
+    def probe(stage: str) -> None:
+        probes[stage] = first_health(
+            lambda name: connect_from_conf(cluster.conf_path, name),
+            f"client.probe_{stage}", f"daemons_{stage}")["s"]
+
+    def warm(fn) -> int:
+        """Uncounted passes of `fn` until DAEMONS_WARM_CLEAN in a row run
+        no batch on a host, DAEMONS_WARM_ROUNDS at most (concurrent ops
+        coalesce into varying shapes, and the scrub channel's row counts
+        vary); returns the passes.  The counted window's own check says
+        whether they sufficed."""
+        clean = 0
+        for rounds in range(1, DAEMONS_WARM_ROUNDS + 1):
+            before = osd_counters(cluster, live)
+            fn()
+            host = counters_delta(before, osd_counters(
+                cluster, live))["host_dispatches"]
+            clean = 0 if host else clean + 1
+            if clean == DAEMONS_WARM_CLEAN:
+                break
+        return rounds
+
+    card_mib = {"before": card_used_mib()}
+
+    def on_up(group: str) -> None:
+        card_mib[group] = card_used_mib()
+
+    try:
+        boot_s = cluster.start(on_up=on_up)
+        live = list(osds)
+        cli(cluster, "osd", "erasure-code-profile", "set", "k8m3",
+            *(f"{k}={v}" for k, v in CLUSTER_PROFILE.items()))
+        cli(cluster, "osd", "pool", "create", CLUSTER_POOL,
+            str(CLUSTER_PG_NUM), "erasure", "k8m3")
+        pool_id = cluster.osdmap().pool_by_name(CLUSTER_POOL).id
+        cluster.wait_clean(pool_id, CLUSTER_PG_NUM, CLUSTER_TIMEOUT)
+        clients = ClientProcs(cluster.conf_path, CLUSTER_POOL,
+                              CLUSTER_CLIENTS, SEED)
+        out["boot_s"] = time.perf_counter() - t_start
+        out["osds_up_s"] = boot_s
+        probe("boot")
+        t0 = time.perf_counter()
+        out["shape_warm"] = warm_shapes(cluster, clients, pool_id, osds)
+
+        def warm_writes():
+            # the counted window's objects, ops and sizes, other bytes:
+            # the appends' tail shapes on their primaries, and the
+            # writes' coalescing
+            clients.run("write", objects(range(n)), tag=WARM_TAG)
+            clients.run("read", objects(range(n)), tag=WARM_TAG)
+            clients.run("append", tails, clients=1, tag=WARM_TAG)
+            clients.run("read", tails, tag=WARM_TAG)
+
+        out["warm_passes"] = {"writes": warm(warm_writes)}
+        out["warm_s"] = time.perf_counter() - t0
+        emit("daemons_boot", **out)
+
+        # -- window 1: writes, reads, appends ------------------------------
+        seen: dict = {}
+        stop = threading.Event()
+
+        def sample_card():
+            while not stop.wait(0.5):
+                seen.update(card_processes())
+                card_mib["writes"] = max(card_mib.get("writes", 0.0),
+                                         card_used_mib())
+
+        before = osd_counters(cluster, live)
+        sampler = threading.Thread(target=sample_card, daemon=True)
+        sampler.start()
+        try:
+            w_wall, w_lat = clients.run("write", objects(range(n)))
+        finally:
+            stop.set()
+            sampler.join()
+        probe("writes")
+        r_wall, r_lat = clients.run("read", objects(range(n)))
+        clients.run("append", tails, clients=1)
+        clients.run("read", tails)
+        probe("reads")
+        d_write = daemons_window(cluster, live, before,
+                                 "daemons writes, reads and appends",
+                                 ("enc",))
+        lanes = lanes_on_card(cluster, live)
+        pids = {name: p.pid for name, p in cluster.procs.items()}
+        listed = {nm for nm, pid in pids.items() if pid in seen}
+        if listed and not {f"osd.{i}" for i in live} <= listed:
+            raise AssertionError(f"nvidia-smi lists {sorted(listed)} but "
+                                 f"not every OSD: {seen} {pids}")
+        step = dict(write_gbs=n * nbytes / w_wall / 1e9,
+                    write_lat_ms=percentiles_ms(w_lat),
+                    read_gbs=n * nbytes / r_wall / 1e9,
+                    read_lat_ms=percentiles_ms(r_lat),
+                    write_window=d_write, osd_lanes=lanes,
+                    stripes_per_write_dispatch={
+                        i: spd for i, (k, spd) in d_write["per_osd"].items()
+                        if k},
+                    card_mib=card_mib_report(card_mib, seen, pids),
+                    elapsed_s=time.perf_counter() - t_start)
+        emit("daemons_writes", **step)
+        out.update(step)
+
+        # every object gets an xattr: a version no OSD's HBM cache holds,
+        # so that scrub, degraded reads and recovery go to the shards, as
+        # phase 9's do after its cache clears
+        clients.run("xattr", every)
+
+        # -- window 2: deep scrub --------------------------------------------
+        scrub_passes = warm(lambda: deep_scrub_procs(
+            cluster, pool_id, CLUSTER_TIMEOUT))
+        before = osd_counters(cluster, live)
+        s_wall, results = deep_scrub_procs(cluster, pool_id,
+                                           CLUSTER_TIMEOUT)
+        bad = {p: r for p, r in results.items() if r["inconsistent"]}
+        if bad:
+            raise AssertionError(f"deep scrub found inconsistencies: {bad}")
+        d_scrub = daemons_window(cluster, live, before,
+                                 "daemons deep scrub", ("crc",))
+        probe("scrub")
+        total = n * nbytes + len(appended) * CLUSTER_APPEND_BYTES
+        step = dict(scrub_gbs=total * (K + M) / K / s_wall / 1e9,
+                    scrub_checked=sum(r["checked"]
+                                      for r in results.values()),
+                    scrub_warm_passes=scrub_passes,
+                    scrub_window=d_scrub,
+                    elapsed_s=time.perf_counter() - t_start)
+        emit("daemons_scrub", **step)
+        out.update(step)
+
+        # -- window 3: a real process death, degraded reads, recovery --------
+        osdmap = cluster.osdmap()
+        eligible = primaries_of(osdmap, pool_id, n)
+        victim = eligible[int(rng.integers(len(eligible)))]
+        lost = lost_shards(osdmap, pool_id, victim, n)
+        down_s = kill_and_wait_down(cluster, victim, grace)
+        live.remove(victim)
+        d_deg, g_wall, g_lat = degraded_reads(
+            cluster, clients, live, every, warm, "daemons degraded reads")
+        probe("degraded_reads")
+        before = osd_counters(cluster, live)
+        t0 = time.perf_counter()
+        cli(cluster, "osd", "out", str(victim))
+        recovery_s = wait_recovered(cluster, live, before, pool_id,
+                                    len(lost), CLUSTER_RECOVERY_TIMEOUT,
+                                    t0)
+        d_rec = daemons_window(cluster, live, before, "daemons recovery",
+                               ("dec", "enc"))
+        probe("recovery")
+        step = dict(victim=victim, marked_down_s=down_s,
+                    degraded_read_gbs=total / g_wall / 1e9,
+                    degraded_read_lat_ms=percentiles_ms(g_lat),
+                    degraded_decode_share=decode_share(d_deg, stripes_read),
+                    degraded_window=d_deg, recovery_s=recovery_s,
+                    lost_shards=len(lost), recovery_window=d_rec,
+                    elapsed_s=time.perf_counter() - t_start)
+        emit("daemons_recovery", **step)
+        out.update(step)
+
+        # -- window 4: a second death, of an OSD holding rebuilt shards ------
+        osdmap = cluster.osdmap()
+        holders = sorted({osdmap.pg_to_up_acting_osds(osdmap.object_to_pg(
+            pool_id, f"obj{i}"))[1][shard] for i, shard in lost.items()})
+        eligible = [o for o in holders
+                    if o in primaries_of(osdmap, pool_id, n)] or holders
+        victim2 = eligible[int(rng.integers(len(eligible)))]
+        down2_s = kill_and_wait_down(cluster, victim2, grace)
+        live.remove(victim2)
+        d_deg2, g2_wall, g2_lat = degraded_reads(
+            cluster, clients, live, every, warm,
+            "daemons degraded reads after the second death")
+        probe("second_degraded_reads")
+        step = dict(victim2=victim2, marked_down2_s=down2_s,
+                    degraded_read2_gbs=total / g2_wall / 1e9,
+                    degraded_read2_lat_ms=percentiles_ms(g2_lat),
+                    degraded2_decode_share=decode_share(d_deg2,
+                                                        stripes_read),
+                    degraded2_window=d_deg2,
+                    elapsed_s=time.perf_counter() - t_start)
+        emit("daemons_second_death", **step)
+        out.update(step)
+
+        # -- teardown ----------------------------------------------------------
+        clients.close()
+        clients = None
+        codes = cluster.stop()
+        bad = {nm: rc for nm, rc in codes.items() if rc != 0}
+        if bad or len(codes) != len(cluster.procs) - 2:
+            raise AssertionError(f"SIGTERM exits: {codes}")
+        out.update(exit_codes=codes, first_health_s=probes,
+                   wall_s=time.perf_counter() - t_start)
+        emit("daemons", **{k: v for k, v in out.items()
+                           if not k.endswith("window")})
+        return out
+    finally:
+        if clients is not None:
+            clients.close()
+        cluster.close()
+
+
+def kill_and_wait_down(cluster, victim: int, grace: float) -> float:
+    """SIGKILL osd.<victim>; the seconds until the mon's map has it down,
+    which only its peers' failure reports can do.  Raises past twice the
+    heartbeat grace (the peers report once the grace has passed)."""
+    t0 = time.perf_counter()
+    cluster.kill(f"osd.{victim}")
+    cluster.wait_osds(lambda m: not m.is_up(victim), 2 * grace,
+                      f"osd.{victim} not marked down")
+    down_s = time.perf_counter() - t0
+    reports = [mon for mon in cluster.mons
+               if f"marking osd.{victim} down (" in cluster.log(
+                   f"mon.{mon}")]
+    if not reports:
+        raise AssertionError(f"osd.{victim} down, but no mon logged the "
+                             f"failure reports")
+    return down_s
+
+
+def degraded_reads(cluster, clients, live, items, warm, what):
+    """Every object read back bit-exact with OSDs down: uncounted warm
+    passes, then the counted one; returns (window, wall seconds, per-op
+    seconds)."""
+    warm(lambda: clients.run("read", items))
+    before = osd_counters(cluster, live)
+    wall, lat = clients.run("read", items)
+    return daemons_window(cluster, live, before, what, ("dec",)), wall, lat
+
+
+def wait_recovered(cluster, live, before, pool_id, lost: int,
+                   timeout: float, t0: float) -> float:
+    """After a mark-out: until the PGs are active+clean, the OSDs have
+    landed at least `lost` rebuilt shards (recovery_pushes counts each,
+    local or pushed) and their counters stood still for a second;
+    returns seconds since t0."""
+    while True:
+        now = osd_counters(cluster, live)
+        d = counters_delta(before, now)
+        if d["recovery_pushes"] >= lost:
+            cluster.wait_clean(pool_id, CLUSTER_PG_NUM,
+                               timeout - (time.perf_counter() - t0))
+            time.sleep(1.0)
+            if osd_counters(cluster, live) == now:
+                return time.perf_counter() - t0 - 1.0
+        if time.perf_counter() - t0 > timeout:
+            raise TimeoutError(f"recovery: {d}")
+        time.sleep(0.25)
+
+
+def run_daemons_phase(rng) -> dict:
+    """Phase 14 with this process's card memory released first; prints
+    the kernel launches its counted windows made in the OSD processes
+    (each OSD's perf dump)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = phase_daemons(rng)
+    launches = {}
+    for w in ("write_window", "scrub_window", "degraded_window",
+              "recovery_window", "degraded2_window"):
+        for name, k in window_launches(out[w]).items():
+            launches[name] = launches.get(name, 0) + k
+    emit("daemons_launches", launches=launches)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of the port on "
@@ -2338,6 +3358,9 @@ def main(argv=None) -> int:
     ap.add_argument("--suite-only", action="store_true",
                     help="build the kernels and run phase 13 alone (the "
                     "reference's device-path test files on the card)")
+    ap.add_argument("--daemons-only", action="store_true",
+                    help="build the kernels and run phase 14 alone (phase "
+                    "9's cluster as mon, OSD and mgr processes)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2376,6 +3399,10 @@ def main(argv=None) -> int:
         phase_reference_suite(cuda_ec, ec_pipeline, hbm_cache, device)
         print(ident, flush=True)
         return 0
+    if args.daemons_only:
+        run_daemons_phase(np.random.default_rng(SEED))
+        print(ident, flush=True)
+        return 0
 
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
@@ -2405,10 +3432,10 @@ def main(argv=None) -> int:
                             if not isinstance(v, dict)})
     ec_pipeline.get().stop()
     payloads = written = None
-    phase_cluster(rng, cuda_ec, ec_pipeline, hbm_cache, native, crc_mod,
-                  device, counts)
-    phase_doors(rng, cuda_ec, ec_pipeline, hbm_cache, native, crc_mod,
-                device, counts)
+    step, cluster = phase_cluster(rng, cuda_ec, ec_pipeline, hbm_cache,
+                                  native, crc_mod, device, counts)
+    phase_doors(cluster, step["victim"], rng, cuda_ec, ec_pipeline,
+                hbm_cache, native, crc_mod, device, counts)
     phase_mesh(rng, device, cuda_ec, ec_kernels, gf, registry, native,
                crc_mod, ec_pipeline, ecutil, counts)
     phase_tools(rng, cuda_ec, ec_pipeline, device, counts)
@@ -2419,6 +3446,7 @@ def main(argv=None) -> int:
     if idle:
         raise AssertionError(f"kernels not launched on the main path: {idle}")
     phase_reference_suite(cuda_ec, ec_pipeline, hbm_cache, device)
+    run_daemons_phase(rng)
 
     kernels = []
     for name, (src, replaces) in KERNEL_META.items():

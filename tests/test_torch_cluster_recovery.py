@@ -332,6 +332,29 @@ def test_xattrs_and_omap_read_from_a_shard_under_another_role(cluster, io):
                                 .remove(cid, other))
 
 
+def test_omap_comes_from_a_shard_at_the_current_version(cluster, io):
+    """The lowest live shard's holder has no file of the object at its
+    current version (a member that lags behind a write, or whose file
+    has not landed): the omap read passes it over for a holder that
+    has one, and is never answered from the missing file as empty.  A
+    cache-tier promote that took that empty omap installed the object
+    without it (an RBD header then read as "no such image")."""
+    io.write_full("mobj", _payload(8, K * UNIT + 5))
+    io.set_omap("mobj", {"hdr": b"header value"})
+    pgid, acting = _acting(cluster, io.pool_id, "mobj")
+    cid = f"pg_{pgid}"
+    store = cluster.osds[acting[0]].store
+    store.apply_transaction(Transaction().clone(cid, "mobj.s0", "mobj.keep")
+                            .remove(cid, "mobj.s0"))
+    hbm_cache.get().clear()
+    try:
+        assert io.get_omap("mobj") == {"hdr": b"header value"}
+    finally:
+        store.apply_transaction(Transaction().clone(cid, "mobj.keep",
+                                                    "mobj.s0")
+                                .remove(cid, "mobj.keep"))
+
+
 def test_role_audit_repeats_until_every_shard_lands(cluster, io,
                                                     monkeypatch):
     """Kill an OSD and mark it out.  The first shard scan each primary

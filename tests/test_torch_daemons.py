@@ -6,9 +6,13 @@ with no card it exits with the pipeline's error.  A caller that sets the
 CPU device before ``main()`` boots an OSD that joins a monitor started
 from the same command line.  The mds and rgw roles parse their command
 lines and, started as processes against a CPU cluster, serve a CephFS
-mount and SigV4-signed S3 requests.
+mount and SigV4-signed S3 requests.  A cluster of mon and OSD processes
+(chip_smoke.py's launcher) survives a SIGKILLed OSD, marked down by the
+mon from its peers' reports, and serves the same bytes as the same
+drill against ceph_tpu's daemons; every survivor exits 0 on SIGTERM.
 """
 
+import itertools
 import os
 import signal
 import socket
@@ -16,6 +20,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -23,6 +28,7 @@ import ceph_tpu_torch
 from ceph_tpu_torch.client import Rados
 from ceph_tpu_torch.daemons import load_conf, main, monmap_from_conf
 from ceph_tpu_torch.osd.osdmap import OSDMap
+from ceph_tpu_torch.tools import connect_from_conf
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU_MAIN = ("import sys, ceph_tpu_torch; ceph_tpu_torch.set_device('cpu'); "
@@ -197,3 +203,98 @@ def test_command_line_mds_and_rgw_serve_a_cpu_cluster(tmp_path):
         hbm_cache.get().clear()
         ceph_tpu_torch.set_device(prev)
     assert codes == [0, 0]
+
+
+# -- the cluster as processes (chip_smoke.py's launcher, on the CPU) -------
+
+DRILL_SEED, DRILL_OBJECTS, DRILL_BYTES = 20261017, 6, 200_000
+DRILL_WIDE = 2 << 20           # 256 stripes of 2 x 4 KiB: a new shape
+DRILL_PROFILE = {"plugin": "tpu", "technique": "reed_sol_van", "k": "2",
+                 "m": "1", "host_cutover": "1"}
+DRILL_CONF = {"mon_tick_interval": 0.5, "osd_heartbeat_interval": 0.5,
+              "osd_heartbeat_grace": 4.0, "mon_osd_min_down_reporters": 2,
+              "mon_osd_down_out_interval": 1e6,
+              "objecter_op_timeout": 60.0}
+
+
+def _chip_smoke():
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    return chip_smoke
+
+
+def _process_drill(tmp_path, main, env) -> tuple:
+    """1 mon and 4 MemStore OSD processes started through `main`, a k=2
+    m=1 tpu pool (every batch routed to the package device's lanes), a
+    client process writing seeded objects; one OSD (drawn from the seed)
+    SIGKILLed and marked down by the mon from its peers' failure
+    reports; every object read back degraded by the client process;
+    one write at a new batch shape, then every survivor SIGTERMed.  Returns (bytes read back, exit
+    codes, {osd: perf dump} of the survivors before the SIGTERM)."""
+    cs = _chip_smoke()
+    cluster = cs.ProcCluster(str(tmp_path), 1, 4, DRILL_CONF, main=main,
+                             env=env, mgr=False)
+    clients = None
+    try:
+        cluster.start(timeout=120.0)
+        admin = cluster.admin
+        admin.create_ec_pool("drill", "k2m1", DRILL_PROFILE, pg_num=8)
+        pool_id = admin.open_ioctx("drill").pool_id
+        cluster.wait_clean(pool_id, 8, 120.0)
+        clients = cs.ClientProcs(cluster.conf_path, "drill", 1, DRILL_SEED)
+        items = [(f"obj{i}", i, DRILL_BYTES, 0)
+                 for i in range(DRILL_OBJECTS)]
+        clients.run("write", items)
+        victim = int(np.random.default_rng(DRILL_SEED).integers(4))
+        cs.kill_and_wait_down(cluster, victim,
+                              DRILL_CONF["osd_heartbeat_grace"])
+        clients.run("read", items)
+        rados = connect_from_conf(cluster.conf_path, "client.check")
+        try:
+            io = rados.open_ioctx("drill")
+            back = [bytes(io.read(f"obj{i}")) for i in range(DRILL_OBJECTS)]
+        finally:
+            rados.shutdown()
+        survivors = [i for i in range(4) if i != victim]
+        perf = {i: cluster.perf(f"osd.{i}") for i in survivors}
+        clients.close()
+        clients = None
+        # one more write, at a batch shape no write has had: its primary
+        # is still warming that shape up when the SIGTERMs go out
+        osdmap = cluster.osdmap()
+        name = next(f"wide{j}" for j in itertools.count()
+                    if victim not in osdmap.pg_to_up_acting_osds(
+                        osdmap.object_to_pg(pool_id, f"wide{j}"))[1])
+        admin.open_ioctx("drill").write_full(name, bytes(DRILL_WIDE))
+        return back, cluster.stop(), perf
+    finally:
+        if clients is not None:
+            clients.close()
+        cluster.close()
+
+
+def test_process_cluster_survives_a_real_osd_death(tmp_path):
+    cs = _chip_smoke()
+    back, codes, perf = _process_drill(tmp_path / "port", ("-c", CPU_MAIN),
+                                       _env())
+    want = [cs.object_payload(DRILL_SEED, i, DRILL_BYTES)
+            for i in range(DRILL_OBJECTS)]
+    assert back == want
+    # every survivor had its pipeline's lanes up, and the pool's
+    # batches went through the pipelines
+    assert all(p["ec_pipeline"]["active_devices"] >= 1
+               for p in perf.values())
+    assert sum(p["ec_pipeline"]["dispatches"] for p in perf.values()) > 0
+    # each process's kernel launch counts ride its perf dump: none on
+    # the CPU, where the wrappers run their plain versions
+    from ceph_tpu_torch.ops import cuda_ec
+    assert all(p["ec_pipeline"]["launches"] == dict.fromkeys(
+        cuda_ec.launches, 0) for p in perf.values())
+    # a SIGTERMed OSD drains its lanes and joins its kernel warm-ups
+    # before the interpreter exits (else the C++ runtime aborts it)
+    assert len(codes) == 4 and all(rc == 0 for rc in codes.values()), codes
+
+    env = dict(_env(), JAX_PLATFORMS="cpu")
+    ref_back, _codes, _perf = _process_drill(
+        tmp_path / "reference", ("-m", "ceph_tpu.daemons"), env)
+    assert ref_back == back
