@@ -3,13 +3,18 @@
     python -m ceph_tpu_torch.daemons mon --name a -c ceph.conf
     python -m ceph_tpu_torch.daemons osd --id 0 -c ceph.conf
     python -m ceph_tpu_torch.daemons mgr --name x -c ceph.conf
-    python -m ceph_tpu_torch.daemons mds --name a -c ceph.conf
-    python -m ceph_tpu_torch.daemons rgw --port 7480 -c ceph.conf
+    python -m ceph_tpu_torch.daemons mds --name a -c ceph.conf \
+        [--metadata-pool cephfs_metadata --data-pool cephfs_data]
+    python -m ceph_tpu_torch.daemons rgw --port 7480 -c ceph.conf \
+        [--data-pool <pool>]
 
 Every role runs its EC work on the package device: ``cuda`` (an OSD
 with no card raises at start) unless a caller that imports this module
 calls ``ceph_tpu_torch.set_device("cpu")`` before ``main()``.  The mds
-and rgw roles do no device work of their own.
+and rgw roles do no device work of their own; with ``admin socket dir``
+set, each answers ``status`` on ``<dir>/mds.<name>.asok`` or
+``<dir>/client.rgw.asok``, saying whether the process has initialised
+CUDA.
 
 ceph.conf is the usual ini (utils/config.py parse_file) plus cluster
 topology the binaries need to boot:
@@ -77,7 +82,22 @@ def monmap_from_conf(conf: Config) -> MonMap:
     return mm
 
 
-def _run_forever(daemon) -> None:
+def _status_socket(conf: Config, entity: str, status: dict):
+    """The daemon's admin socket under `admin socket dir` (none when it
+    is unset), answering `status`: `status` and whether this process
+    has initialised CUDA."""
+    import torch
+    from .utils.admin_socket import AdminSocket
+    sock_dir = str(conf.admin_socket_dir)
+    asok = AdminSocket(entity, path=f"{sock_dir}/{entity}.asok"
+                       if sock_dir else "")
+    asok.register("status", lambda c: {
+        **status, "cuda_initialized": torch.cuda.is_initialized()})
+    asok.start()
+    return asok
+
+
+def _run_forever(daemon, asok=None) -> None:
     stop = threading.Event()
 
     def on_signal(signum, frame):
@@ -89,6 +109,8 @@ def _run_forever(daemon) -> None:
         stop.wait()
     finally:
         daemon.shutdown()
+        if asok is not None:
+            asok.shutdown()
 
 
 def main_mon(args) -> None:
@@ -130,10 +152,14 @@ def main_mds(args) -> None:
     conf = load_conf(args.conf, f"mds.{args.name}")
     monmap = monmap_from_conf(conf)
     from .fs.mds import MDSDaemon
-    mds = MDSDaemon(args.name, monmap, conf=conf)
+    mds = MDSDaemon(args.name, monmap, conf=conf,
+                    metadata_pool=args.metadata_pool,
+                    data_pool=args.data_pool)
     mds.start()
+    asok = _status_socket(conf, f"mds.{args.name}", {
+        "metadata_pool": args.metadata_pool, "data_pool": args.data_pool})
     print(f"mds.{args.name} up at {mds.msgr.addr}", flush=True)
-    _run_forever(mds)
+    _run_forever(mds, asok)
 
 
 def main_rgw(args) -> None:
@@ -143,11 +169,14 @@ def main_rgw(args) -> None:
     from .rgw import RGWDaemon
     r = Rados(monmap, "client.rgw", conf=conf)
     r.connect()
+    pool = {"data_pool": args.data_pool} if args.data_pool else {}
     rgw = RGWDaemon(r, port=args.port, access_key=args.access_key,
-                    secret_key=args.secret_key)
+                    secret_key=args.secret_key, **pool)
     rgw.start()
+    asok = _status_socket(conf, "client.rgw", {
+        "port": rgw.port, "data_pool": rgw.io.pool_name})
     print(f"rgw up at http://127.0.0.1:{rgw.port}", flush=True)
-    _run_forever(rgw)
+    _run_forever(rgw, asok)
 
 
 def main(argv=None) -> None:
@@ -171,12 +200,17 @@ def main(argv=None) -> None:
 
     p_mds = sub.add_parser("mds")
     p_mds.add_argument("--name", required=True)
+    p_mds.add_argument("--metadata-pool", default="cephfs_metadata")
+    p_mds.add_argument("--data-pool", default="cephfs_data")
     p_mds.add_argument("-c", "--conf")
 
     p_rgw = sub.add_parser("rgw")
     p_rgw.add_argument("--port", type=int, default=7480)
     p_rgw.add_argument("--access-key", default="")
     p_rgw.add_argument("--secret-key", default="")
+    p_rgw.add_argument("--data-pool", default="",
+                       help="the zone's data pool (default: the "
+                       "gateway's own)")
     p_rgw.add_argument("-c", "--conf")
 
     args = parser.parse_args(argv)

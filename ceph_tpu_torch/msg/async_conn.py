@@ -558,6 +558,8 @@ class AsyncConnection:
         self.in_seq = 0
         self._queue: list[tuple[int, list]] = []    # (seq, iovec) unsent
         self._sent: list[tuple[int, list]] = []     # sent, not yet acked
+        self.acked_seq = 0       # see Connection.__init__
+        self._lost: set[int] = set()
         self._writer = None      # the OPEN out-_Sock (None while down;
         self._closed = False     # MonClient probes this for liveness)
         self.last_active = time.time()
@@ -581,10 +583,15 @@ class AsyncConnection:
         self.worker.call(self._queue_msg, msg)
 
     def _queue_msg(self, msg: Message) -> None:
+        sent = getattr(msg, "_sent", None)
         if self._closed:
+            if sent is not None:
+                sent.fate = False
             return
         msg.src = self.msgr.name
         self.out_seq += 1
+        if sent is not None:
+            sent.conn, sent.seq = self, self.out_seq
         frame = msg.encode_iov(self.out_seq)
         self.msgr.perf.inc("msg_send")
         self.msgr.perf.inc("bytes_send", sum(len(b) for b in frame))
@@ -593,6 +600,7 @@ class AsyncConnection:
         self._pump()
 
     def _handle_ack(self, seq: int) -> None:
+        self.acked_seq = max(self.acked_seq, seq)
         self._sent = [(s, f) for s, f in self._sent if s > seq]
 
     def _requeue_sent(self, peer_in_seq: int) -> None:
@@ -600,6 +608,7 @@ class AsyncConnection:
             self._queue[:0] = self._sent
             self._sent = []
         if peer_in_seq:
+            self.acked_seq = max(self.acked_seq, peer_in_seq)
             self._queue = [(s, f) for s, f in self._queue
                            if s > peer_in_seq]
 
@@ -805,6 +814,7 @@ class AsyncConnection:
             if fs.should_drop(msgr.name, self.peer_name):
                 # modeled message loss (see Messenger._drain_queue)
                 self._queue.pop(0)
+                self._lost.add(seq)
                 if not self.policy.lossy:
                     self._sent.append((seq, frame))
                 continue

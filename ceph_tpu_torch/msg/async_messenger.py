@@ -147,6 +147,8 @@ class AsyncMessenger(Messenger):
         self.get_connection(peer_name, peer_addr).send_message(msg)
 
     def _fast_dispatch_local(self, msg: Message) -> None:
+        if getattr(msg, "_sent", None) is not None:
+            msg._sent.fate = True
         conn = self.conns.get(self.name)
         if conn is None:
             conn = AsyncConnection(self, self.name, self.addr,

@@ -101,6 +101,18 @@ class Dispatcher:
         """Peer connection dropped (lossy) or gave up (lossless)."""
 
 
+class Sent:
+    """Set as msg._sent before send_message by a sender that wants to
+    know whether the message arrived (Messenger.delivery): the messenger
+    records the link and seq of its frame, or its fate when it never
+    reaches a link."""
+
+    __slots__ = ("conn", "seq", "fate")
+
+    def __init__(self):
+        self.conn, self.seq, self.fate = None, 0, None
+
+
 class Connection:
     """One peer link; owns an ordered send queue."""
 
@@ -125,6 +137,10 @@ class Connection:
         # the gather write — resends reuse the same views
         self._queue: list[tuple[int, list]] = []    # (seq, iovec) unsent
         self._sent: list[tuple[int, list]] = []     # sent, not yet acked
+        # where our frames stand (Messenger.delivery): the highest seq
+        # the peer acknowledged, and the seqs an injected drop lost
+        self.acked_seq = 0
+        self._lost: set[int] = set()
         self._writer: asyncio.StreamWriter | None = None
         self._closed = False
         self._send_event = asyncio.Event()
@@ -139,10 +155,15 @@ class Connection:
         self.msgr._loop_call(self._queue_msg, msg)
 
     def _queue_msg(self, msg: Message) -> None:
+        sent = getattr(msg, "_sent", None)
         if self._closed:
+            if sent is not None:
+                sent.fate = False
             return
         msg.src = self.msgr.name
         self.out_seq += 1
+        if sent is not None:
+            sent.conn, sent.seq = self, self.out_seq
         frame = msg.encode_iov(self.out_seq)
         self.msgr.perf.inc("msg_send")
         self.msgr.perf.inc("bytes_send", sum(len(b) for b in frame))
@@ -152,6 +173,7 @@ class Connection:
                                       # grow a writer on first send
 
     def _handle_ack(self, seq: int) -> None:
+        self.acked_seq = max(self.acked_seq, seq)
         self._sent = [(s, f) for s, f in self._sent if s > seq]
 
     def _requeue_sent(self, peer_in_seq: int) -> None:
@@ -162,6 +184,7 @@ class Connection:
             self._queue[:0] = self._sent
             self._sent = []
         if peer_in_seq:
+            self.acked_seq = max(self.acked_seq, peer_in_seq)
             self._queue = [(s, f) for s, f in self._queue
                            if s > peer_in_seq]
 
@@ -479,7 +502,26 @@ class Messenger:
             return
         self.get_connection(peer_name, peer_addr).send_message(msg)
 
+    @staticmethod
+    def delivery(sent: "Sent") -> bool | None:
+        """Where the message that carried `sent` stands: True once the
+        peer acknowledged its frame (at once for a loopback send), False
+        once it can no longer arrive (an injected drop lost it, or its
+        link closed before the ack), None while it is queued or on its
+        way.  Frames on one link arrive in order, so an ack of a later
+        seq covers it."""
+        conn, seq = sent.conn, sent.seq
+        if conn is None:
+            return sent.fate
+        if seq in conn._lost:
+            return False
+        if seq <= conn.acked_seq:
+            return True
+        return False if conn._closed else None
+
     def _fast_dispatch_local(self, msg: Message) -> None:
+        if getattr(msg, "_sent", None) is not None:
+            msg._sent.fate = True
         conn = self.conns.get(self.name)
         if conn is None:
             conn = Connection(self, self.name, self.addr,
@@ -631,6 +673,7 @@ class Messenger:
                     # moved past it); higher layers' retries own
                     # end-to-end recovery, as with real packet loss.
                     conn._queue.pop(0)
+                    conn._lost.add(seq)
                     if not conn.policy.lossy:
                         conn._sent.append((seq, frame))
                     continue

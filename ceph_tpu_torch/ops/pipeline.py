@@ -682,6 +682,15 @@ class EcDevicePipeline:
             self._holders += 1
         return n
 
+    def lane_devices(self) -> list:
+        """The devices of the live lanes, each once; builds the lanes
+        if none are up yet."""
+        devices: list = []
+        for lane in self._ensure_devset().active():
+            if lane.device not in devices:
+                devices.append(lane.device)
+        return devices
+
     def release_lanes(self, timeout: float = 30.0) -> None:
         """A daemon that held the lanes shuts down.  The last holder in
         the process drains the queued and in-flight work, joins the

@@ -28,6 +28,17 @@ from .pglog import (HINFO_KEY, VER_KEY, ZERO_EV, _parse_ev, shard_oid,
                     stash_oid)
 
 
+def pool_stripe_info(osdmap, pool, codec) -> ecutil.StripeInfo:
+    """Stripe geometry from the pool's EC profile (stripe_unit),
+    rounded so a chunk holds whole codec alignment units."""
+    profile = osdmap.ec_profiles.get(pool.erasure_code_profile or "", {})
+    su = int(profile.get("stripe_unit", ecutil.DEFAULT_STRIPE_UNIT))
+    k = codec.get_data_chunk_count()
+    per_chunk = max(1, codec.get_alignment() // k)
+    su = -(-su // per_chunk) * per_chunk
+    return ecutil.StripeInfo(k, su)
+
+
 class ECBackend:
     # ---- EC write path ---------------------------------------------------
 
@@ -35,17 +46,8 @@ class ECBackend:
         return self.osd.get_ec_codec(self.pool)
 
     def _ec_sinfo(self, codec=None) -> ecutil.StripeInfo:
-        """Stripe geometry from the pool's EC profile (stripe_unit),
-        rounded so a chunk holds whole codec alignment units."""
-        codec = codec or self._ec_codec()
-        pool = self.pool
-        profile = self.osd.osdmap.ec_profiles.get(
-            pool.erasure_code_profile or "", {})
-        su = int(profile.get("stripe_unit", ecutil.DEFAULT_STRIPE_UNIT))
-        k = codec.get_data_chunk_count()
-        per_chunk = max(1, codec.get_alignment() // k)
-        su = -(-su // per_chunk) * per_chunk
-        return ecutil.StripeInfo(k, su)
+        return pool_stripe_info(self.osd.osdmap, self.pool,
+                                codec or self._ec_codec())
 
     def _ec_object_payload(self, msg) -> tuple[str, object]:
         """EC pools accept whole-object payloads (writefull/append).

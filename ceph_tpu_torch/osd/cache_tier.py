@@ -12,6 +12,12 @@ from ..utils import denc
 from .messages import MOSDOp
 from .pglog import DIRTY_KEY, WHITEOUT_KEY
 
+EBUSY = 16
+# promotes one op may start: an installed copy that is gone again when
+# its parked op re-runs is fetched again this many times, then the op
+# answers EAGAIN (the client resends)
+PROMOTE_ROUNDS = 3
+
 
 class CacheTier:
     # ---- cache tiering (tier-pg side) ------------------------------------
@@ -37,6 +43,8 @@ class CacheTier:
         only the promote decision — whiteout/existence semantics still
         apply (a read parked behind a parked delete must see the
         whiteout the delete just created, not the marker object)."""
+        if all(op[0] == "list" for op in msg.ops):
+            return False      # a listing of the tier's own objects
         promoted = getattr(msg, "_promoted", False)
         pool = self.pool
         store = self.osd.store
@@ -63,25 +71,37 @@ class CacheTier:
                 # a leftover writeback-era whiteout is NOT an object
                 self._reply(conn, msg, -ENOENT, [])
                 return True
-            if exists or promoted:
+            if exists:
                 return False
-            waiting = self._promote_waiting.get(oid)
-            if waiting is not None:
-                waiting.append((conn, msg))
-                return True
-            self._promote(conn, msg)
-            return True
+            return self._park_for_promote(conn, msg)
         # writeback
         if whiteout:
             if writes:
                 return False      # revive semantics in _build_txn
             self._reply(conn, msg, -ENOENT, [])
             return True
-        if exists or promoted:
+        if exists or getattr(msg, "_base_absent", False):
             return False
         # miss: a whole-object write needs no base copy
         if writes and any(op[0] == "writefull" for op in msg.ops):
             return False
+        return self._park_for_promote(conn, msg)
+
+    def _park_for_promote(self, conn, msg) -> bool:
+        """A miss: park the op behind the object's promote, starting one
+        if none is in flight.  A re-dispatch (msg._promoted) whose
+        installed copy is gone again promotes again, PROMOTE_ROUNDS
+        times at most, then answers EAGAIN: an op never reads a copy
+        the tier dropped as an absent object.  Always True."""
+        oid = msg.oid
+        if getattr(msg, "_promoted", False):
+            msg._promoted = False
+            msg._promote_rounds = getattr(msg, "_promote_rounds", 1) + 1
+            if msg._promote_rounds > PROMOTE_ROUNDS:
+                self._reply(conn, msg, -11, [])
+                return True
+            self.log.info("%s left the tier before its parked op ran: "
+                          "promote round %d", oid, msg._promote_rounds)
         waiting = self._promote_waiting.get(oid)
         if waiting is not None:
             waiting.append((conn, msg))
@@ -108,9 +128,13 @@ class CacheTier:
 
     def _finish_promote(self, oid: str, reply) -> None:
         with self.lock:
-            waiters = self._promote_waiting.pop(oid, [])
-            if not waiters:
+            if not self._promote_waiting.get(oid):
                 return
+            if reply is not None and reply.result == 0 and \
+                    not self.osd.store.exists(self.cid, oid):
+                self._install_promoted(oid, reply)
+                return
+            waiters = self._promote_waiting.pop(oid)
             if self.osd.store.exists(self.cid, oid):
                 # a whole-object client write raced the base fetch and
                 # fully defined the object — installing the (older)
@@ -129,28 +153,43 @@ class CacheTier:
                 for conn, m in waiters:
                     _r, writes = self._split_ops(m.ops)
                     if writes:
-                        m._promoted = True
+                        m._promoted = m._base_absent = True
                         self.do_op(conn, m)
                     else:
                         self._reply(conn, m, reply.result, [])
-                return
-            data, xattrs, omap = (reply.outdata + [b"", {}, {}])[:3]
-            ops: list = [("writefull", data or b"")]
-            for k, v in (xattrs or {}).items():
-                ops.append(("setxattr", k, v))
-            if omap:
-                ops.append(("omap_set", dict(omap)))
 
-            def installed(result: int) -> None:
-                with self.lock:
-                    for conn, m in waiters:
-                        if result == 0:
-                            m._promoted = True
-                            self.do_op(conn, m)
-                        else:
-                            self._reply(conn, m, result or -11, [])
+    def _install_promoted(self, oid: str, reply) -> None:
+        """Install the base's copy through the replicated write path.
+        The parked ops stay in _promote_waiting until its commit re-runs
+        them, so the agent sees the promote in flight meanwhile.
+        Caller holds self.lock."""
+        data, xattrs, omap = (reply.outdata + [b"", {}, {}])[:3]
+        ops: list = [("writefull", data or b"")]
+        for k, v in (xattrs or {}).items():
+            ops.append(("setxattr", k, v))
+        if omap:
+            ops.append(("omap_set", dict(omap)))
 
-            self._internal_write(oid, ops, installed)
+        def installed(result: int) -> None:
+            with self.lock:
+                for conn, m in self._promote_waiting.pop(oid, []):
+                    if result == 0:
+                        m._promoted = True
+                        self.do_op(conn, m)
+                    else:
+                        self._reply(conn, m, result or -11, [])
+
+        self._internal_write(oid, ops, installed)
+
+    def _drop_promote_waiting(self) -> None:
+        """New interval: EAGAIN the ops parked behind promotes (clients
+        resend to the re-peered PG); a promote that lands later finds
+        no waiter and installs nothing.  Caller holds self.lock."""
+        parked = list(self._promote_waiting.values())
+        self._promote_waiting.clear()
+        for ops in parked:
+            for conn, msg in ops:
+                self._reply(conn, msg, -11, [])
 
     def _internal_write(self, oid: str, ops: list, done=None) -> None:
         """Write with no external client, through the NORMAL
@@ -163,6 +202,33 @@ class CacheTier:
         msg._cache_internal = True
         msg._internal_done = done
         self._do_write(None, msg)
+
+    def _evict_busy(self, oid: str) -> bool:
+        """True while `oid` has work in flight that an evict would
+        strand (ReplicatedPG::agent_maybe_evict skips such objects): a
+        promote until its install commits and re-runs the parked ops,
+        other ops parked on the object, or a write of it not yet
+        committed.  Caller holds self.lock."""
+        return (oid in self._promote_waiting
+                or oid in self._recovery_blocked
+                or oid in self._reads_behind_writes
+                or any(st["msg"].oid == oid
+                       for st in self._inflight.values()))
+
+    def _evict_refused(self, oid: str, whiteout: bool) -> bool:
+        """The evict op's own check as it executes (CEPH_OSD_OP_CACHE_
+        EVICT answers -EBUSY): a plain evict drops only a clean copy
+        with no work in flight; a whiteout retire (whiteout=True) only a
+        whiteout a client write has not revived.  Caller holds
+        self.lock."""
+        try:
+            attrs = self.osd.store.getattrs(self.cid, oid)
+        except StoreError:
+            return False          # nothing here: the evict is a no-op
+        if whiteout:
+            return WHITEOUT_KEY not in attrs
+        return (DIRTY_KEY in attrs or WHITEOUT_KEY in attrs
+                or self._evict_busy(oid))
 
     def _hit_set_record(self, oid: str) -> None:
         """Append the access to the current HitSet, rotating by
@@ -260,7 +326,9 @@ class CacheTier:
                 excess = live - per_pg
                 if excess > 0:
                     hot = self._hot_oids()
-                    victims = sorted(clean, key=lambda o: o in hot)
+                    victims = sorted((o for o in clean
+                                      if not self._evict_busy(o)),
+                                     key=lambda o: o in hot)
                     n = min(int(excess + 0.999), max_ops, len(victims))
                     for oid in victims[:n]:
                         self._internal_write(oid, [("evict",)])
@@ -326,5 +394,5 @@ class CacheTier:
                           # flight; evicting now would drop acked data
             # base is clean (deleted or never had it): retire the
             # whiteout on the whole acting set
-            self._internal_write(oid, [("evict",)])
+            self._internal_write(oid, [("evict", "whiteout")])
 

@@ -54,6 +54,8 @@ from .scrubber import ScrubService  # noqa: E402
 # (osd_qos_recovery); "@" keeps it out of the pool namespace — client
 # object (and pool) names containing "@" are rejected at the front door
 RECOVERY_QOS_CLASS = "@recovery"
+# seconds `ec warm` waits for its shapes (each one kernel launch)
+EC_WARM_TIMEOUT = 300.0
 
 
 class OSDDaemon(Dispatcher, RecoveryService, ScrubService):
@@ -249,6 +251,9 @@ class OSDDaemon(Dispatcher, RecoveryService, ScrubService):
             "config set",
             lambda c: (self.conf.injectargs(
                 f"--{c['key']} {c['value']}"), "ok")[1])
+        self.asok.register("cache drop", self._asok_cache_drop)
+        self.asok.register("ec warm", self._asok_ec_warm)
+        self.asok.register("dump_shard", self._asok_dump_shard)
         self.asok.register("status", lambda c: {
             "whoami": self.whoami, "epoch": self.osdmap.epoch,
             "num_pgs": len(self.pgs)})
@@ -717,6 +722,85 @@ class OSDDaemon(Dispatcher, RecoveryService, ScrubService):
         must not claim completeness until backfilled."""
         return pool_id in self.monc.pool_births_witnessed
 
+    def _asok_cache_drop(self, cmd: dict) -> dict:
+        """`cache drop`: empty this process's HBM stripe cache, so that
+        reads and deep scrub go to the shards and the kernels."""
+        from ..ops import hbm_cache
+        cache = hbm_cache.get()
+        dropped = cache.stats().get("entries")
+        cache.clear()
+        return {"dropped": dropped}
+
+    def _asok_ec_warm(self, cmd: dict) -> dict:
+        """`ec warm`: the EC pool's codec warm on every pipeline lane at
+        each padded batch of `stripes` stripes (the fused encode, and
+        the decodes of 1..m data rows), and the scrub CRC channel at each
+        padded row count up to osd_deep_scrub_stripe_batch of each of
+        `scrub_sizes` bytes, before traffic meets those shapes (a first
+        call at a new shape serves from the host while its kernels
+        warm).  Returns the shapes and the seconds."""
+        from ..ops import pipeline as ec_pipeline
+        from .backend_ec import pool_stripe_info
+        t0 = time.monotonic()
+        pool = self.osdmap.pool_by_name(str(cmd.get("pool", "")))
+        if pool is None or not pool.is_erasure:
+            raise ValueError(f"no EC pool {cmd.get('pool')!r}")
+        codec = self.get_ec_codec(pool)
+        be, coding = codec.backend, codec.coding_matrix
+        k, km = codec.get_data_chunk_count(), codec.get_chunk_count()
+        unit = pool_stripe_info(self.osdmap, pool, codec).chunk_size
+        buckets = sorted({ec_pipeline.next_bucket(int(n))
+                          for n in cmd.get("stripes", ())})
+        decodes = []
+        for r in range(1, km - k + 1):
+            lost = list(range(r))
+            decodes.append(codec._decode_rows(
+                lost, [i for i in range(km) if i not in lost][:k]))
+        rows = int(self.conf.osd_deep_scrub_stripe_batch)
+        waits = []
+        for dev in ec_pipeline.get().lane_devices():
+            for S in buckets:
+                shape = (S, k, unit)
+                waits.append(lambda d=dev, sh=shape: be.fused_fn_if_ready(
+                    coding, sh, d))
+                waits += [lambda d=dev, sh=shape, mat=mat:
+                          be.device_fn_if_ready("bytes", mat, (), sh, d)
+                          for mat in decodes]
+            waits += [lambda d=dev, n=int(size), j=j:
+                      ec_pipeline.crc_fn_if_ready(n, (1 << j, n), d)
+                      for size in cmd.get("scrub_sizes", ())
+                      for j in range(rows.bit_length())]
+        end = t0 + EC_WARM_TIMEOUT
+        pending = waits
+        while pending:
+            pending = [w for w in pending if w() is None]
+            if pending and time.monotonic() > end:
+                raise TimeoutError(f"ec warm: {len(pending)} of "
+                                   f"{len(waits)} shapes still cold")
+            if pending:
+                time.sleep(0.05)
+        return {"shapes": len(waits), "s": time.monotonic() - t0}
+
+    def _asok_dump_shard(self, cmd: dict) -> dict:
+        """`dump_shard`: one object file of a PG as this OSD's store
+        holds it: its length, the SHA-256 of its bytes, its HashInfo
+        decoded (None when it has none) and, with "data": true, the
+        bytes themselves in base64, for checking a shard against its
+        recomputation."""
+        import base64
+        import hashlib
+        cid, name = f"pg_{cmd['pgid']}", str(cmd["oid"])
+        data = bytes(self.store.read(cid, name))
+        try:
+            hinfo = denc.loads(self.store.getattr(cid, name, HINFO_KEY))
+        except StoreError:
+            hinfo = None
+        out = {"bytes": len(data), "hinfo": hinfo,
+               "sha256": hashlib.sha256(data).hexdigest()}
+        if cmd.get("data"):
+            out["data"] = base64.b64encode(data).decode()
+        return out
+
     def get_ec_codec(self, pool):
         """Codec per pool's EC profile (cached)."""
         from ..erasure.registry import registry
@@ -864,54 +948,69 @@ class OSDDaemon(Dispatcher, RecoveryService, ScrubService):
                     trace_id=str(getattr(msg, "trace", "") or ""),
                     kind="recovery")
             pgid = PgId.parse(msg.pgid)
-            # tenant traffic (client ops + the replica halves of its
-            # writes) is scheduled under the pool's service class;
-            # recovery pushes ride their own throttleable class when
-            # osd_qos_recovery is set; everything else (peering, scrub
-            # control) rides the unconstrained FIFO class.  Same-pg
-            # ops of one class stay FIFO within their per-client
-            # deque, so per-PG ordering is preserved.  Cost is
-            # bytes-weighted (1 + payload/unit): a 4 MiB write
-            # advances its pool's tags ~1000x further than a 4 KiB
-            # stat, so configured rates meter bytes, not op counts.
-            qos = None
-            cost = 1.0
-            unit = int(self.conf.osd_qos_cost_bytes_unit)
-            if isinstance(msg, (MOSDOp, MOSDRepOp, MOSDECSubOpWrite)):
-                qos = self.qos_tag_of(pgid.pool)
-                if qos is not None and unit > 0:
-                    cost = 1.0 + self._qos_payload_bytes(msg) / unit
-            elif self._qos_recovery is not None and (
-                    isinstance(msg, MPGPush)
-                    or (isinstance(msg, MPGInfo) and msg.op in (
-                        "push_delete", "backfill_progress",
-                        "backfill_done", "rewind"))):
-                # the recovery DATA PLANE and its ordering-sensitive
-                # control markers ride ONE class: a backfill_progress
-                # or backfill_done served from the unconstrained deque
-                # while earlier pushes sit limit-throttled would
-                # advance the peer's watermark (or completeness) ahead
-                # of the objects it covers — per-class per-shard FIFO
-                # keeps push -> marker order intact under throttling
-                qos = RECOVERY_QOS_CLASS
-                if unit > 0 and isinstance(msg, MPGPush):
-                    data = getattr(msg, "data", b"") or b""
-                    cost = 1.0 + len(data) / unit
-            trk = getattr(msg, "_trk", None)
-            if trk is not None:
-                # queue wait is anchored to the op's INITIATION (the
-                # dispatch bookkeeping above is queue time too): the
-                # span covers the op-shard deque AND any dmClock
-                # throttle stall, tagged with the scheduling class
-                trk.span_begin("queue", _t0=getattr(trk, "mstart",
-                                                    None),
-                               qos=qos, cost=round(cost, 2))
-            wq = self.subread_wq if isinstance(msg, MOSDECSubOpRead) \
-                else self.op_wq
-            wq.queue(pgid, self._handle_op, conn, msg, qos=qos,
-                     qos_cost=cost)
+            if isinstance(msg, MOSDOp) and not self._read_is_new(
+                    pgid, conn, msg):
+                return True          # another copy of the read answers
+            self.queue_op(pgid, conn, msg)
             return True
         return False
+
+    def queue_op(self, pgid: PgId, conn, msg) -> None:
+        """Queue a PG-bound message on its op shard, under its service
+        class."""
+        # tenant traffic (client ops + the replica halves of its
+        # writes) is scheduled under the pool's service class;
+        # recovery pushes ride their own throttleable class when
+        # osd_qos_recovery is set; everything else (peering, scrub
+        # control) rides the unconstrained FIFO class.  Same-pg
+        # ops of one class stay FIFO within their per-client
+        # deque, so per-PG ordering is preserved.  Cost is
+        # bytes-weighted (1 + payload/unit): a 4 MiB write
+        # advances its pool's tags ~1000x further than a 4 KiB
+        # stat, so configured rates meter bytes, not op counts.
+        qos = None
+        cost = 1.0
+        unit = int(self.conf.osd_qos_cost_bytes_unit)
+        if isinstance(msg, (MOSDOp, MOSDRepOp, MOSDECSubOpWrite)):
+            qos = self.qos_tag_of(pgid.pool)
+            if qos is not None and unit > 0:
+                cost = 1.0 + self._qos_payload_bytes(msg) / unit
+        elif self._qos_recovery is not None and (
+                isinstance(msg, MPGPush)
+                or (isinstance(msg, MPGInfo) and msg.op in (
+                    "push_delete", "backfill_progress",
+                    "backfill_done", "rewind"))):
+            # the recovery DATA PLANE and its ordering-sensitive
+            # control markers ride ONE class: a backfill_progress
+            # or backfill_done served from the unconstrained deque
+            # while earlier pushes sit limit-throttled would
+            # advance the peer's watermark (or completeness) ahead
+            # of the objects it covers — per-class per-shard FIFO
+            # keeps push -> marker order intact under throttling
+            qos = RECOVERY_QOS_CLASS
+            if unit > 0 and isinstance(msg, MPGPush):
+                data = getattr(msg, "data", b"") or b""
+                cost = 1.0 + len(data) / unit
+        trk = getattr(msg, "_trk", None)
+        if trk is not None:
+            # queue wait is anchored to the op's INITIATION (the
+            # dispatch bookkeeping above is queue time too): the
+            # span covers the op-shard deque AND any dmClock
+            # throttle stall, tagged with the scheduling class
+            trk.span_begin("queue", _t0=getattr(trk, "mstart",
+                                                None),
+                           qos=qos, cost=round(cost, 2))
+        wq = self.subread_wq if isinstance(msg, MOSDECSubOpRead) \
+            else self.op_wq
+        wq.queue(pgid, self._handle_op, conn, msg, qos=qos,
+                 qos_cost=cost)
+
+    def _read_is_new(self, pgid: PgId, conn, msg) -> bool:
+        """False for a copy of a client read that another copy answers
+        (PG.note_queued_read); a PG not instantiated yet has none."""
+        with self.pg_lock:
+            pg = self.pgs.get(pgid)
+        return pg is None or pg.note_queued_read(conn, msg)
 
     @staticmethod
     def _qos_payload_bytes(msg) -> int:

@@ -32,11 +32,12 @@ from typing import TYPE_CHECKING
 from ..crush.map import ITEM_NONE
 from ..store.objectstore import StoreError, Transaction
 from ..utils import denc
+from ..msg.messenger import Sent
 from ..utils.dout import DoutLogger
 from .backend import PGBackendBase
 from .backend_ec import ECBackend
 from .backend_rep import ReplicatedBackend
-from .cache_tier import CacheTier
+from .cache_tier import EBUSY, CacheTier
 from .messages import MOSDOpReply
 from .osdmap import PgId
 from .peering import Peering
@@ -47,6 +48,12 @@ from .snaps import SnapOps
 
 if TYPE_CHECKING:
     from .daemon import OSDDaemon
+
+# replied client reads kept by reqid past this many entries are
+# forgotten once their replies have settled (delivered or lost)
+READS_KEPT = 256
+# seconds between looks at a reply that copies of its read wait on
+READ_SETTLE_POLL = 0.02
 
 __all__ = [
     "PG", "PGLog", "ZERO_EV", "HINFO_KEY", "VER_KEY", "SNAPSET_KEY",
@@ -112,6 +119,14 @@ class PG(ReplicatedBackend, ECBackend, CacheTier, SnapOps, Peering,
         self.split_pending = False
         self.lock = threading.RLock()
         self._inflight: dict[tuple, dict] = {}   # reqid -> gather state
+        # client reads by reqid (note_queued_read): while queued or
+        # running, {"first": msg, "conn"/"latest": the newest copy's};
+        # once answered, {"sent": where its reply stands, "held":
+        # copies waiting on its delivery}.  The messenger thread
+        # registers each read as it queues it, so the table has its own
+        # lock: self.lock is held across EC shard gathers
+        self._reads_lock = threading.Lock()
+        self._reads: dict[tuple, dict] = {}
         # EC reads of an object whose write is still gathering its
         # shards PARK here until it finishes (oid -> [(conn, msg)])
         self._reads_behind_writes: dict[str, list] = {}
@@ -316,6 +331,8 @@ class PG(ReplicatedBackend, ECBackend, CacheTier, SnapOps, Peering,
                 self._drop_parked()          # dead interval's sub-ops
                 self._drop_recovery_blocked()   # clients re-send
                 self._drop_reads_behind_writes()    # clients re-send
+                self._drop_promote_waiting()        # clients re-send
+                self._drop_reads()                  # clients re-send
                 self._pull_queued_at.clear()    # new round re-pulls
                 # the dead interval's catch-up: its poll returns without
                 # clearing it, and a primary no longer behind never
@@ -561,6 +578,89 @@ class PG(ReplicatedBackend, ECBackend, CacheTier, SnapOps, Peering,
 
     # ---- reads -----------------------------------------------------------
 
+    def note_queued_read(self, conn, msg) -> bool:
+        """Messenger thread, as a client op is queued on this PG: True
+        to queue it.  A copy of a read that is queued, parked or running
+        here starts nothing: the first copy's reply goes to this copy's
+        connection, the latest, as a resent write's does.  A copy of a
+        read already answered on this connection waits for that reply's
+        fate (Messenger.delivery): delivered, the copy is dropped; lost
+        (an injected drop, or the link closed), it runs.  Nothing else
+        is cached: a copy that comes once the answer has settled, or on
+        another connection, runs again."""
+        _reads, writes = self._split_ops(msg.ops)
+        if writes:
+            return True
+        reqid = (msg.src, msg.tid)
+        with self._reads_lock:
+            ent = self._reads.get(reqid)
+            same = ent is not None and (ent["oid"], ent["ops"]) == \
+                (msg.oid, msg.ops)
+            if same and "first" in ent:
+                ent["conn"], ent["latest"] = conn, msg
+                self._duplicate(msg)
+                return False
+            if same and ent["conn"] is conn:
+                fate = self.osd.msgr.delivery(ent["sent"])
+                if fate is None:
+                    ent["held"].append(msg)
+                    if len(ent["held"]) == 1:
+                        self.osd.msgr.call_later(
+                            READ_SETTLE_POLL, self._settle_read, reqid,
+                            ent)
+                    return False
+                if fate:
+                    del self._reads[reqid]
+                    self._duplicate(msg)
+                    return False
+            if ent is not None:
+                # a new run answers the copies this entry held too
+                for held in ent.get("held", ()):
+                    self._duplicate(held)
+            self._reads[reqid] = {"oid": msg.oid, "ops": msg.ops,
+                                  "first": msg, "conn": conn,
+                                  "latest": msg}
+        msg._read_reqid = reqid
+        return True
+
+    @staticmethod
+    def _duplicate(msg) -> None:
+        """Close out a copy of an op that another copy answers."""
+        trk = getattr(msg, "_trk", None)
+        if trk is not None:
+            msg._trk = None
+            trk.mark_event("duplicate")
+            trk.finish()
+
+    def _settle_read(self, reqid, ent) -> None:
+        """Messenger timer: once the reply that copies of a read wait on
+        has settled, drop them (delivered) or queue the first to run
+        again, the others attached to it (lost)."""
+        with self._reads_lock:
+            if self._reads.get(reqid) is not ent:
+                return                   # interval change answered them
+            fate = self.osd.msgr.delivery(ent["sent"])
+            if fate is None:
+                self.osd.msgr.call_later(READ_SETTLE_POLL,
+                                         self._settle_read, reqid, ent)
+                return
+            del self._reads[reqid]
+        for msg in ent["held"]:
+            if fate:
+                self._duplicate(msg)
+            elif self.note_queued_read(ent["conn"], msg):
+                self.osd.queue_op(self.pgid, ent["conn"], msg)
+
+    def _drop_reads(self) -> None:
+        """New interval: forget the reads (resends run anew) and EAGAIN
+        the copies waiting on a reply's delivery."""
+        with self._reads_lock:
+            ents = list(self._reads.values())
+            self._reads.clear()
+        for ent in ents:
+            for msg in ent.get("held", ()):
+                self._reply(ent["conn"], msg, -11, [])
+
     def _do_read(self, conn, msg) -> None:
         if self.is_ec:
             self._ec_read(conn, msg)
@@ -639,6 +739,11 @@ class PG(ReplicatedBackend, ECBackend, CacheTier, SnapOps, Peering,
         if done is not None:
             result, version, outdata = done
             self._reply(conn, msg, result, outdata, version=version)
+            return
+        evict = next((op for op in msg.ops if op[0] == "evict"), None)
+        if evict is not None and self._evict_refused(
+                msg.oid, whiteout=evict[1:] == ("whiteout",)):
+            self._reply(conn, msg, -EBUSY, [])    # nothing removed
             return
         if (self.is_cache and self.pool.cache_mode == "writeback"
                 and not getattr(msg, "_cache_internal", False)
@@ -719,7 +824,8 @@ class PG(ReplicatedBackend, ECBackend, CacheTier, SnapOps, Peering,
                     kind = "delete"
             elif name == "evict":
                 # cache-internal: drop the local copy outright (no
-                # whiteout — the base still holds the truth)
+                # whiteout — the base still holds the truth); _do_write
+                # refused it on the primary unless the copy may go
                 txn.try_remove(self.cid, oid)
                 kind = "delete"
             elif name == "setxattr_raw":
@@ -920,11 +1026,44 @@ class PG(ReplicatedBackend, ECBackend, CacheTier, SnapOps, Peering,
         reply = MOSDOpReply(
             tid=msg.tid, result=result, outdata=outdata, version=version,
             epoch=self.osd.osdmap.epoch)
+        reqid = getattr(msg, "_read_reqid", None)
+        if reqid is None:
+            self._send_reply(conn, msg, reply)
+            return
+        msg._read_reqid = None
+        with self._reads_lock:
+            ent = self._reads.get(reqid)
+            if ent is None or ent.get("first") is not msg:
+                self._send_reply(conn, msg, reply)
+                return
+            del self._reads[reqid]
+            conn = ent["conn"]
+            if result != -11:             # EAGAIN: the client resends
+                reply._sent = Sent()
+                self._reads[reqid] = {"oid": msg.oid, "ops": msg.ops,
+                                      "conn": conn, "sent": reply._sent,
+                                      "held": []}
+                self._forget_settled_reads()
+            # sent under the lock: a copy that finds the read answered
+            # finds its reply handed to the messenger
+            self._send_reply(conn, ent["latest"], reply)
+
+    def _send_reply(self, conn, msg, reply) -> None:
         rtid = getattr(msg, "rpc_tid", None)
         if rtid is not None:
             reply.rpc_tid = rtid        # OSD-internal client (promote/
         self.osd.reply_to_client(conn, reply)   # flush) matches by tid
 
+    def _forget_settled_reads(self) -> None:
+        """Past READS_KEPT entries, forget the answered reads whose
+        replies have settled.  Caller holds self._reads_lock."""
+        if len(self._reads) <= READS_KEPT:
+            return
+        delivery = self.osd.msgr.delivery
+        for reqid in [r for r, e in self._reads.items()
+                      if "sent" in e and not e["held"]
+                      and delivery(e["sent"]) is not None]:
+            del self._reads[reqid]
 
     def scrub(self, deep: bool = False, repair: bool = False) -> dict:
         """Compare object sets (+ checksums if deep) across the acting

@@ -5,6 +5,10 @@
     ... osd pool create <name> [pg_num]
     ... osd erasure-code-profile set <name> k=4 m=2 plugin=tpu
     ... osd down|out|in <id>
+    ... osd tier add <pool> <tierpool> | osd tier cache-mode <pool> <mode>
+    ... osd tier set-overlay <pool> <overlaypool>
+    ... osd pool set <pool> <var> <val>
+    ... pg scrub|deep-scrub|repair <pgid>
     ... daemon <asok-path> <command>       (admin socket passthrough)
 """
 
@@ -24,7 +28,22 @@ _KNOWN_PREFIXES = [
     "osd pool create", "osd pool rm", "osd pool ls",
     "osd tree", "osd dump", "osd getmap", "osd down", "osd out",
     "osd in", "osd reweight", "status",
+    "osd tier add", "osd tier remove", "osd tier cache-mode",
+    "osd tier set-overlay", "osd tier remove-overlay", "osd pool set",
+    "pg scrub", "pg deep-scrub", "pg repair",
 ]
+# the argument names of the positional words after each prefix above,
+# as the mon's handlers read them
+_POSITIONAL = {
+    "osd tier add": ("pool", "tierpool"),
+    "osd tier remove": ("pool", "tierpool"),
+    "osd tier cache-mode": ("pool", "mode"),
+    "osd tier set-overlay": ("pool", "overlaypool"),
+    "osd tier remove-overlay": ("pool",),
+    "osd pool set": ("pool", "var", "val"),
+    "pg scrub": ("pgid",), "pg deep-scrub": ("pgid",),
+    "pg repair": ("pgid",),
+}
 
 
 def parse_command(words: list[str]) -> dict:
@@ -59,6 +78,8 @@ def parse_command(words: list[str]) -> dict:
             elif prefix == "osd reweight":
                 cmd["id"] = int(rest[0])
                 cmd["weight"] = float(rest[1])
+            elif prefix in _POSITIONAL:
+                cmd.update(zip(_POSITIONAL[prefix], rest))
             elif prefix == "osd pool selfmanaged-snap create":
                 cmd["pool"] = rest[0]
             elif prefix == "osd pool selfmanaged-snap rm":

@@ -137,15 +137,14 @@ processes, each with its own Rados from the conf.  The pool, workload
 and seed are phase 9's: the profile set and the pool created through the
 port's ceph CLI, 64 x 4 MiB written, read back bit-exact in the client
 processes, 100,001 B appended to 8.  Before the windows every OSD
-process warms the batch shapes they can give it (warm_shapes: encodes
-of 128 and 256 stripes, decodes of 1..m rows at both, the decodes forced
-by FaultSet eio rules on other objects over the admin sockets), and each
-counted window is preceded by uncounted passes of the same ops on the
-same objects (other bytes) until they serve no batch on a host.
-Windows: writes, reads and appends (nvidia-smi's compute apps sampled
-meanwhile: every OSD pid must hold the card); then an xattr on every
-object (a version no HBM cache holds: the windows after it go to the
-shards, as phase 9's do after its cache clears); deep scrub of every PG
+process is warmed by the `ec warm` admin command at each batch and
+scrub shape the windows can give it (ec_warm), and each counted window
+is preceded by uncounted passes of the same ops on the same objects
+(other bytes) until they serve no batch on a host.  Windows: writes,
+reads and appends (nvidia-smi's compute apps sampled meanwhile: every
+OSD pid must hold the card); then every OSD's HBM cache dropped (`cache
+drop`: the windows after it go to the shards, as phase 9's do after its
+cache clears); deep scrub of every PG
 (`pg deep-scrub`, each result read from the primary's log), no
 inconsistency; SIGKILL of an OSD drawn from the seed among the primaries
 of the objects' PGs, marked down by the mon from its peers' failure
@@ -156,13 +155,45 @@ every object read degraded again.  Each window's device dispatches and
 kernel launches are read from every OSD's `perf dump` over its admin
 socket and summed: device dispatches above 0 for the kinds the window
 runs, no batch on a host, and each kernel entry point launched once per
-device dispatch of its kind.  At the end every daemon must exit 0 on
+device dispatch of its kind; the degraded reads decode at most
+MAX_DECODE_SHARE stripes per stripe read (as phase 9's must: a resent
+read runs once).  At the end every daemon must exit 0 on
 SIGTERM within 30 s.  It prints client write, read and degraded-read
 GB/s and p50/p99, the share of the degraded reads' stripes that were
 decoded, recovery seconds, scrub GB/s, boot and warm-up seconds, stripes
 per write dispatch per OSD, each process's card memory, the kernel
 launches, and a fresh client's first `health` seconds after each window.
-`--daemons-only` runs this phase alone.
+
+Phase 15 runs phase 10's doors on phase 14's cluster, after its last
+window: phase 14's second killed OSD started again (its MemStore empty;
+with 11 OSDs in, CRUSH leaves a hole in some PG of a k+m = 11 pool) and
+the pool clean on 12 OSDs; phase 10's pools and tier made through the
+port's ceph CLI; one MDS and one RGW process from the same conf file,
+each boot timed with the card's memory.used around it (neither may
+initialise CUDA: their `status` over the admin socket says);
+every OSD process warmed by ec_warm; then phase 10's widths from
+client processes: 8 S3 processes PUT 16 x 8 MiB with SigV4 to the RGW
+process, 2 RBD processes each write a 32 MiB image (order 22,
+ObjectCacher on), 2 CephFS processes each write two 16 MiB files
+through the MDS process.  Windows, each counted from every OSD's `perf
+dump`: writes; flush, until every shard file of every door object and
+its HashInfo, read over the holders' admin sockets (`dump_shard`),
+equal the host oracle; promote (the tier listed empty of door objects,
+every OSD's HBM cache dropped, every object read through its door, then
+stat sizes); deep scrub of the base (`pg deep-scrub` per PG); degraded
+promote (an OSD drawn from the seed among the holders of door objects'
+shards SIGKILLed and marked down from its peers' reports, the tier
+empty again, every object read again).  Each window runs no batch on a
+host and launches each kernel once per device dispatch of its kind,
+the flush encodes and the scrub CRCs on the card, the degraded promote
+decodes; no codec degrades (mon `health`); phase 15 launches all four
+kernel entry points.  Every read is byte-exact (S3 GETs with the ETag
+the body's MD5).  It prints per-door GB/s and op p50/p99, flush s,
+promote, scrub and degraded-promote GB/s beside phase 10's from the
+same run, the MDS and RGW boot seconds and card memory, and the
+launches.  The MDS and the RGW stop first at teardown and must exit 0
+on SIGTERM with the other daemons.  `--daemons-only` runs phases 14
+and 15 alone.
 
 After each window of phase 9 a fresh client's first `health` is timed
 (client creation included); one that waits past 5 s dumps every
@@ -188,7 +219,6 @@ prints no result.
 from __future__ import annotations
 
 import hashlib
-import itertools
 import json
 import os
 import signal
@@ -1379,14 +1409,16 @@ def phase_cluster(rng, cuda_ec, ec_pipeline, hbm_cache, native, crc_mod,
         mid = ec_pipeline.stats()
         d_deg = {k: mid[k] - before[k] for k in (
             "dispatches", "dev_dispatches_dec", "stripes")}
+        share = decode_share_ok(d_deg, object_stripes(
+            objects(range(CLUSTER_OBJECTS), range(CLUSTER_APPENDS))),
+            "cluster degraded reads")
         probes["degraded_reads"] = first_health(
             cluster.client, "client.probe_degraded", "degraded_reads")
         emit("cluster_degraded_reads",
              first_health=probes["degraded_reads"],
              degraded_read_gbs=sum(map(len, finals.values())) / g_wall / 1e9,
              degraded_read_lat_ms=percentiles_ms(g_lat),
-             degraded_decode_share=decode_share(d_deg, object_stripes(
-                 objects(range(CLUSTER_OBJECTS), range(CLUSTER_APPENDS)))),
+             degraded_decode_share=share,
              degraded_window=d_deg,
              elapsed_s=time.perf_counter() - t_start)
         t0 = time.perf_counter()
@@ -2536,6 +2568,8 @@ class ProcCluster:
         with open(self.conf_path, "w") as f:
             f.write("\n".join(lines) + "\n")
         self.procs: dict = {}
+        self.args: dict = {}
+        self.killed: set = set()      # SIGKILLed and not started again
         self.admin = None
 
     def log_path(self, name: str) -> str:
@@ -2549,11 +2583,28 @@ class ProcCluster:
         return os.path.join(self.asok_dir, f"{name}.asok")
 
     def spawn(self, name: str, args: list) -> None:
-        with open(self.log_path(name), "w") as log:
+        """Start `name`; a name started before (a restart) keeps its old
+        log as `<name>.log.1`."""
+        path = self.log_path(name)
+        if name in self.procs:
+            os.replace(path, path + ".1")
+        self.args[name] = args
+        self.killed.discard(name)
+        with open(path, "w") as log:
             self.procs[name] = subprocess.Popen(
                 [sys.executable, *self.main, *args, "-c", self.conf_path],
                 cwd=self.cwd, env=self.env, stdout=log,
                 stderr=subprocess.STDOUT)
+
+    def start_daemon(self, name: str, args: list,
+                     timeout: float = DAEMONS_BOOT_TIMEOUT) -> float:
+        """Start one daemon more (or again, with its first arguments
+        when `args` is None) and wait for its `up at` line; returns the
+        seconds."""
+        t0 = time.perf_counter()
+        self.spawn(name, self.args[name] if args is None else args)
+        self.wait_up([name], timeout)
+        return time.perf_counter() - t0
 
     def wait_up(self, names, timeout: float) -> None:
         """Until each daemon has printed its `<name> up at` line."""
@@ -2638,17 +2689,22 @@ class ProcCluster:
     def kill(self, name: str) -> None:
         self.procs[name].send_signal(signal.SIGKILL)
         self.procs[name].wait(DAEMONS_STOP_TIMEOUT)
+        self.killed.add(name)
 
     def stop(self, timeout: float = DAEMONS_STOP_TIMEOUT) -> dict:
-        """SIGTERM to every live daemon, the OSDs and the mgr first and
-        the mons after them; {name: exit code}, None for one that
+        """SIGTERM to every live daemon: the MDS and the gateway first
+        (they write through the OSDs as they stop), then the OSDs and
+        the mgr, then the mons; {name: exit code}, None for one that
         outlived `timeout` and was killed."""
         if self.admin is not None:
             self.admin.shutdown()
             self.admin = None
         live = {n: p for n, p in self.procs.items() if p.poll() is None}
+        gateways = [n for n in live if n.startswith(("mds.", "rgw"))]
         codes = {}
-        for group in ([n for n in live if not n.startswith("mon.")],
+        for group in (gateways,
+                      [n for n in live if not n.startswith("mon.")
+                       and n not in gateways],
                       [n for n in live if n.startswith("mon.")]):
             for n in group:
                 live[n].send_signal(signal.SIGTERM)
@@ -2697,10 +2753,6 @@ def client_main(conf_path: str, name: str, pool: str, seed: int,
                     elif op == "append":
                         io.append(oid, object_payload(seed, i, tail,
                                                       tag + 1))
-                    elif op == "xattr":
-                        io.set_xattr(oid, "tag", str(tag).encode())
-                    elif op == "remove":
-                        io.remove_object(oid)
                     else:
                         want = object_payload(seed, i, nbytes, tag)
                         if tail:
@@ -2723,52 +2775,66 @@ def objects(idxs, appended=()) -> list:
 
 
 class ClientProcs:
-    """`n` client processes (client_main); item j of a run goes to
-    client j % n."""
+    """`n` client processes running `main` (client_main unless said),
+    named `<name><t>`; item j of a run goes to client j % n.  Call
+    ready() after the constructor unless `wait` was left True."""
 
-    def __init__(self, conf_path: str, pool: str, n: int, seed: int):
+    def __init__(self, conf_path: str, pool: str, n: int, seed: int,
+                 main=None, name: str = "client.load", wait: bool = True):
         import multiprocessing
         ctx = multiprocessing.get_context("spawn")
         self.conns, self.procs = [], []
         try:
             for t in range(n):
                 parent, child = ctx.Pipe()
-                p = ctx.Process(target=client_main, daemon=True,
-                                args=(conf_path, f"client.load{t}", pool,
+                p = ctx.Process(target=main or client_main, daemon=True,
+                                args=(conf_path, f"{name}{t}", pool,
                                       seed, child))
                 p.start()
                 self.conns.append(parent)
                 self.procs.append(p)
-            for c in self.conns:
-                if not c.poll(DAEMONS_BOOT_TIMEOUT) or \
-                        c.recv() != "ready":
-                    raise AssertionError("a client process did not connect")
+            if wait:
+                self.ready()
         except BaseException:
             self.close()
             raise
 
+    def ready(self) -> None:
+        """Until every client process has connected."""
+        for c in self.conns:
+            if not c.poll(DAEMONS_BOOT_TIMEOUT) or c.recv() != "ready":
+                raise AssertionError("a client process did not connect")
+
     def run(self, op: str, items, clients=None, tag=0):
-        """`op` ("write", "read", "append", "xattr", "remove") on `items`
+        """`op` ("write", "read", "append") on `items`
         with the payloads of `tag`, spread over the clients (or over the
         first `clients`), concurrently; returns (wall seconds, per-op
         seconds).  Raises the first error a client reported."""
+        wall, lat, _out = self.run_out(op, items, clients, tag)
+        return wall, lat
+
+    def run_out(self, op: str, items, clients=None, tag=0):
+        """run(), returning (wall seconds, per-op seconds, each item's
+        result in item order) where the client's main answers results."""
         n = clients or len(self.conns)
         parts = [items[t::n] for t in range(n)]
         t0 = time.perf_counter()
         for c, part in zip(self.conns, parts):
             c.send((op, part, tag))
-        lat, errs = [], []
-        for c, _part in zip(self.conns, parts):
+        lat, errs, out = [], [], [None] * len(items)
+        for t, (c, part) in enumerate(zip(self.conns, parts)):
             if not c.poll(DAEMONS_CLIENT_TIMEOUT):
                 raise TimeoutError(f"{op}: a client process did not "
                                    f"answer in {DAEMONS_CLIENT_TIMEOUT} s")
-            got, e = c.recv()
-            lat += got
-            errs += e
+            got = c.recv()
+            lat += got[0]
+            errs += got[1]
+            if len(got) > 2:
+                out[t::n] = got[2]
         wall = time.perf_counter() - t0
         if errs:
             raise AssertionError(f"{op}: {errs[:4]}")
-        return wall, lat
+        return wall, lat, out
 
     def close(self) -> None:
         for c in self.conns:
@@ -2965,79 +3031,22 @@ def primaries_of(osdmap, pool_id: int, n: int) -> list:
                    for i in range(n)})
 
 
-SHAPE_PREFIX = "shape"              # the shape warm-up's objects
-
-
-def shape_faults(r: int) -> str:
-    """FaultSet `eio` rules failing the store reads of m shards of the
-    objects shape<r>_*: data shards 1..r and the last m - r parity
-    shards.  With its own shard 0 the primary then gathers exactly k
-    shards, and the read decodes r data rows."""
-    fail = list(range(1, r + 1)) + list(range(K + r, K + M))
-    return ";".join(f"eio osd.* {SHAPE_PREFIX}{r}_*.s{s}" for s in fail)
-
-
-def shape_objects(osdmap, pool_id: int, osds) -> list:
-    """Client items of the shape warm-up: for each OSD as the primary
-    and each r in 1..m, an object of phase 9's size (128 stripes) and
-    one of its appended size (132 stripes, the 256 bucket)."""
-    items = []
-    for osd in osds:
-        for r in range(1, M + 1):
-            names = (f"{SHAPE_PREFIX}{r}_{osd}_{j}" for j in
-                     itertools.count())
-            mine = (nm for nm in names if osdmap.pg_primary(
-                osdmap.object_to_pg(pool_id, nm)) == osd)
-            for nbytes in (CLUSTER_OBJECT_BYTES,
-                           CLUSTER_OBJECT_BYTES + CLUSTER_APPEND_BYTES):
-                items.append((next(mine), 10_000 + len(items), nbytes, 0))
-    return items
-
-
-def warm_shapes(cluster, clients, pool_id: int, osds) -> dict:
-    """Every OSD process warm, before the counted windows, at each batch
-    shape they can give it: the fused encode at 128 and 256 stripes (a
-    write of each size with the OSD as primary), and the decode of r = 1
-    .. m data rows at both (the rebuild reads and degraded reads of
-    windows 3 and 4 decode whichever rows the first k shards to answer
-    leave out; two 128-stripe decodes coalesce to 256).  The decodes
-    are forced through the OSDs' FaultSet (`faults install` over each
-    admin socket): eio rules on m shards of each object (shape_faults),
-    installed for the warm-up and cleared after it.  Each object gets an
-    xattr after its write, a version no HBM cache holds, so its reads
-    gather and decode.  Read passes until one serves no batch on a host
-    with every OSD decoding; the objects are removed at the end.
-    Returns the objects, read passes and seconds."""
-    from ceph_tpu_torch.utils.admin_socket import admin_command
-    t0 = time.perf_counter()
-    items = shape_objects(cluster.osdmap(), pool_id, osds)
-    clients.run("write", items, tag=WARM_TAG)
-    clients.run("xattr", items, tag=WARM_TAG)
-    spec = ";".join(shape_faults(r) for r in range(1, M + 1))
-    try:
-        for i in osds:
-            admin_command(cluster.asok(f"osd.{i}"), {
-                "prefix": "faults install", "rules": spec,
-                "source": "shapes"})
-        for passes in range(1, DAEMONS_WARM_ROUNDS + 1):
-            before = osd_counters(cluster, osds)
-            clients.run("read", items, tag=WARM_TAG)
-            after = osd_counters(cluster, osds)
-            dec = {i: after[i]["dev_dispatches_dec"]
-                   - before[i]["dev_dispatches_dec"] for i in osds}
-            if not counters_delta(before, after)["host_dispatches"] and \
-                    min(dec.values()) >= 2 * M:
-                break
-        else:
-            raise AssertionError(f"shape warm-up: host batches or too few "
-                                 f"decodes in every pass: {dec}")
-    finally:
-        for i in osds:
-            admin_command(cluster.asok(f"osd.{i}"), {
-                "prefix": "faults clear", "source": "shapes"})
-    clients.run("remove", items)
-    return {"objects": len(items), "read_passes": passes,
-            "s": time.perf_counter() - t0}
+def ec_warm(cluster, osds, pool: str, shard_sizes) -> dict:
+    """`ec warm` on every OSD in `osds`: the pool's codec at each padded
+    batch up to osd_ec_pipeline_max_batch or the largest object's
+    stripes (the fused encode, the decodes of 1..m rows), and the scrub
+    CRC over shards of each of `shard_sizes` bytes, before the windows
+    meet those shapes (a first call at a new shape serves from the host
+    while its kernels warm).  Returns the shapes and the slowest OSD's
+    seconds."""
+    top = max(int(cluster_conf().osd_ec_pipeline_max_batch),
+              max(shard_sizes) // CLUSTER_UNIT)
+    got = osds_command(cluster, osds, {
+        "prefix": "ec warm", "pool": pool,
+        "stripes": [1 << j for j in range(top.bit_length())],
+        "scrub_sizes": list(shard_sizes)})
+    return {"shapes": sum(a["shapes"] for a in got.values()),
+            "s": max(a["s"] for a in got.values())}
 
 
 def object_stripes(items) -> int:
@@ -3055,8 +3064,26 @@ def decode_share(d: dict, stripes_read: int):
     return d["stripes"] / stripes_read
 
 
-def phase_daemons(rng):
-    """Phase 14 (see the module docstring)."""
+# stripes decoded per stripe read, at most, in a degraded-read window:
+# each read decodes its stripes once (a resent copy runs no second
+# decode) or fewer (reads the primary serves whole)
+MAX_DECODE_SHARE = 1.1
+
+
+def decode_share_ok(d: dict, stripes_read: int, what: str) -> float:
+    """decode_share(), which must exist and be at most
+    MAX_DECODE_SHARE."""
+    share = decode_share(d, stripes_read)
+    if share is None or share > MAX_DECODE_SHARE:
+        raise AssertionError(f"{what}: {share} stripes decoded per stripe "
+                             f"read (at most {MAX_DECODE_SHARE}): {d}")
+    return share
+
+
+def phase_daemons(rng, doors10=None):
+    """Phase 14, then phase 15 on its cluster (see the module
+    docstring); `doors10` is phase 10's result, None when it did not
+    run."""
     import shutil
     from ceph_tpu_torch.tools import connect_from_conf
     root = os.path.dirname(os.path.abspath(__file__))
@@ -3125,7 +3152,9 @@ def phase_daemons(rng):
         out["osds_up_s"] = boot_s
         probe("boot")
         t0 = time.perf_counter()
-        out["shape_warm"] = warm_shapes(cluster, clients, pool_id, osds)
+        out["ec_warm"] = ec_warm(cluster, osds, CLUSTER_POOL, (
+            CLUSTER_OBJECT_BYTES // K,
+            object_stripes(tails) // len(tails) * CLUSTER_UNIT))
 
         def warm_writes():
             # the counted window's objects, ops and sizes, other bytes:
@@ -3185,10 +3214,9 @@ def phase_daemons(rng):
         emit("daemons_writes", **step)
         out.update(step)
 
-        # every object gets an xattr: a version no OSD's HBM cache holds,
-        # so that scrub, degraded reads and recovery go to the shards, as
-        # phase 9's do after its cache clears
-        clients.run("xattr", every)
+        # scrub, degraded reads and recovery go to the shards, as phase
+        # 9's do after its cache clears
+        osds_command(cluster, live, {"prefix": "cache drop"})
 
         # -- window 2: deep scrub --------------------------------------------
         scrub_passes = warm(lambda: deep_scrub_procs(
@@ -3234,7 +3262,8 @@ def phase_daemons(rng):
         step = dict(victim=victim, marked_down_s=down_s,
                     degraded_read_gbs=total / g_wall / 1e9,
                     degraded_read_lat_ms=percentiles_ms(g_lat),
-                    degraded_decode_share=decode_share(d_deg, stripes_read),
+                    degraded_decode_share=decode_share_ok(
+                        d_deg, stripes_read, "daemons degraded reads"),
                     degraded_window=d_deg, recovery_s=recovery_s,
                     lost_shards=len(lost), recovery_window=d_rec,
                     elapsed_s=time.perf_counter() - t_start)
@@ -3257,24 +3286,30 @@ def phase_daemons(rng):
         step = dict(victim2=victim2, marked_down2_s=down2_s,
                     degraded_read2_gbs=total / g2_wall / 1e9,
                     degraded_read2_lat_ms=percentiles_ms(g2_lat),
-                    degraded2_decode_share=decode_share(d_deg2,
-                                                        stripes_read),
+                    degraded2_decode_share=decode_share_ok(
+                        d_deg2, stripes_read,
+                        "daemons degraded reads after the second death"),
                     degraded2_window=d_deg2,
                     elapsed_s=time.perf_counter() - t_start)
         emit("daemons_second_death", **step)
         out.update(step)
 
-        # -- teardown ----------------------------------------------------------
         clients.close()
         clients = None
+
+        # -- phase 15: the doors as processes on this cluster --------------
+        out["doors"] = phase_doors_daemons(cluster, rng, live, victim2,
+                                           pool_id, doors10)
+
+        # -- teardown ----------------------------------------------------------
         codes = cluster.stop()
         bad = {nm: rc for nm, rc in codes.items() if rc != 0}
-        if bad or len(codes) != len(cluster.procs) - 2:
+        if bad or set(codes) != set(cluster.procs) - cluster.killed:
             raise AssertionError(f"SIGTERM exits: {codes}")
         out.update(exit_codes=codes, first_health_s=probes,
                    wall_s=time.perf_counter() - t_start)
         emit("daemons", **{k: v for k, v in out.items()
-                           if not k.endswith("window")})
+                           if not k.endswith("window") and k != "doors"})
         return out
     finally:
         if clients is not None:
@@ -3330,19 +3365,544 @@ def wait_recovered(cluster, live, before, pool_id, lost: int,
         time.sleep(0.25)
 
 
-def run_daemons_phase(rng) -> dict:
-    """Phase 14 with this process's card memory released first; prints
-    the kernel launches its counted windows made in the OSD processes
-    (each OSD's perf dump)."""
+# -- phase 15: the doors as processes on phase 14's cluster ----------------
+
+DOOR_TAGS = {"s3": 10, "rbd": 20, "cephfs": 30}   # object_payload tags
+DOOR_ITEMS = {"s3": S3_OBJECTS, "rbd": RBD_CLIENTS,
+              "cephfs": FS_CLIENTS * FS_FILES}
+DOOR_BYTES = {"s3": S3_OBJECT_BYTES, "rbd": RBD_IMAGE_BYTES,
+              "cephfs": FS_FILE_BYTES}
+DOORS_RGW = "rgw"                      # the gateway's ProcCluster name
+
+
+def door_payload(seed: int, door: str, i: int, nbytes: int) -> bytes:
+    """The seeded body of S3 object i, RBD image i or CephFS file i."""
+    return object_payload(seed, i, nbytes, DOOR_TAGS[door])
+
+
+def door_op(door: str, ctx, seed: int, op: str, item: tuple, lat: list):
+    """One op of a door client on item (i, bytes of its body); appends
+    each RADOS-object-size op's seconds to `lat` and returns the op's
+    result."""
+    O = DOORS_OBJECT_BYTES
+    i, nbytes = item
+    if door == "s3":
+        path = f"/{DOORS_BUCKET}/obj{i}"
+        t0 = time.perf_counter()
+        if op == "bucket":
+            s3_request(ctx, "PUT", f"/{DOORS_BUCKET}")
+            return None
+        if op == "size":
+            return int(s3_request(ctx, "HEAD", path)[0]["Content-Length"])
+        body = door_payload(seed, door, i, nbytes)
+        headers, got = s3_request(ctx, "PUT" if op == "write" else "GET",
+                                  path, body if op == "write" else b"")
+        lat.append(time.perf_counter() - t0)
+        if (op == "read" and got != body) or \
+                etag_of(headers) != hashlib.md5(body).hexdigest():
+            raise AssertionError(f"S3 {op} obj{i}: body or ETag != PUT")
+        return None
+    if door == "rbd":
+        from ceph_tpu_torch.rbd import RBD, Image
+        name = f"image{i}"
+        if op == "create":
+            RBD(ctx).create(name, nbytes, order=RBD_ORDER)
+            return None
+        if op == "size":
+            with Image(ctx, name) as img:
+                return img.stat()["size"]
+        body = door_payload(seed, door, i, nbytes)
+        img = Image(ctx, name, cache=True)
+        try:
+            for n in range(nbytes // O):
+                t0 = time.perf_counter()
+                if op == "write":
+                    img.write(n * O, body[n * O:(n + 1) * O])
+                elif bytes(img.read(n * O, O)) != body[n * O:(n + 1) * O]:
+                    raise AssertionError(f"{name} object {n} != written")
+                lat.append(time.perf_counter() - t0)
+        finally:
+            img.close()           # flushes the ObjectCacher
+        return None
+    path = f"/file{i}"
+    if op == "size":
+        return ctx.stat(path)["size"]
+    body = door_payload(seed, door, i, nbytes)
+    t0 = time.perf_counter()
+    f = ctx.open(path, "w" if op == "write" else "r")
+    if op == "write":
+        f.write(body)
+    got = None if op == "write" else f.read()
+    f.close()
+    lat.append(time.perf_counter() - t0)
+    if got is not None and got != body:
+        raise AssertionError(f"{path} != written")
+    return f.ino
+
+
+def door_main(conf_path: str, name: str, door: str, seed: int,
+              conn) -> None:
+    """One door client process.  `door` "s3:<port>": SigV4 requests over
+    HTTP to the RGW process, no Rados of its own; "rbd": its own Rados,
+    the images with the ObjectCacher on; "cephfs": its own Rados and a
+    CephFS mount through the MDS process.  Runs each (op, items, tag)
+    it is sent (door_op) and answers (per-op seconds, errors, results)."""
+    from ceph_tpu_torch.tools import connect_from_conf
+    kind, _, port = door.partition(":")
+    rados = None
+    try:
+        if kind == "s3":
+            ctx = int(port)
+        else:
+            rados = connect_from_conf(conf_path, name)
+            if kind == "rbd":
+                ctx = rados.open_ioctx(DOORS_POOL)
+            else:
+                from ceph_tpu_torch.fs import CephFS, FsError
+                ctx = CephFS(rados, data_pool=DOORS_POOL,
+                             metadata_pool=DOORS_META)
+                end = time.monotonic() + DOORS_TIMEOUT
+                while True:
+                    try:
+                        ctx.mount(timeout=10.0)
+                        break
+                    except FsError:
+                        if time.monotonic() > end:
+                            raise
+        conn.send("ready")
+        while True:
+            msg = conn.recv()
+            if msg is None:
+                break
+            op, items, _tag = msg
+            lat, errs, out = [], [], []
+            for item in items:
+                try:
+                    out.append(door_op(kind, ctx, seed, op, item, lat))
+                except Exception as e:   # noqa: BLE001 (sent back)
+                    errs.append(f"{kind} {op} {item[0]}: {e!r}")
+                    out.append(None)
+            conn.send((lat, errs, out))
+    finally:
+        if rados is not None:
+            rados.shutdown()
+
+
+class DoorProcs:
+    """Phase 15's client processes: S3_CLIENTS S3 clients over HTTP to the
+    RGW process, RBD_CLIENTS RBD clients and FS_CLIENTS CephFS clients
+    through the MDS process, one Rados or HTTP client each."""
+
+    def __init__(self, conf_path: str, port: int, seed: int):
+        self.seed = seed
+        self.procs: dict = {}
+        self.inos: list = []
+        try:
+            for kind, n in (("s3", S3_CLIENTS), ("rbd", RBD_CLIENTS),
+                            ("cephfs", FS_CLIENTS)):
+                self.procs[kind] = ClientProcs(
+                    conf_path, f"s3:{port}" if kind == "s3" else kind, n,
+                    seed, main=door_main, name=f"client.{kind}",
+                    wait=False)
+            for procs in self.procs.values():
+                procs.ready()
+        except BaseException:
+            self.close()
+            raise
+
+    @staticmethod
+    def items(kind: str) -> list:
+        """The door's items: (index, bytes of its body)."""
+        return [(i, DOOR_BYTES[kind]) for i in range(DOOR_ITEMS[kind])]
+
+    def setup(self) -> None:
+        """The bucket and the images, before the write window."""
+        self.procs["s3"].run("bucket", self.items("s3")[:1], clients=1)
+        self.procs["rbd"].run("create", self.items("rbd"))
+
+    def run(self, op: str) -> dict:
+        """`op` ("write" or "read") through every door, one door after
+        the other; per-door rates and all together."""
+        out = {}
+        for kind, procs in self.procs.items():
+            wall, lat, res = procs.run_out(op, self.items(kind))
+            if kind == "cephfs" and op == "write":
+                self.inos = res
+            out[kind] = door_rate(DOOR_ITEMS[kind] * DOOR_BYTES[kind],
+                                  wall, lat)
+        out["gbs"] = self.nbytes() / sum(v["wall_s"] for v in out.values()
+                                         if isinstance(v, dict)) / 1e9
+        return out
+
+    def check_sizes(self) -> None:
+        """stat through each door: S3 HEAD, RBD image size, CephFS."""
+        for kind, procs in self.procs.items():
+            _w, _l, sizes = procs.run_out("size", self.items(kind))
+            if sizes != [DOOR_BYTES[kind]] * DOOR_ITEMS[kind]:
+                raise AssertionError(f"{kind} sizes {sizes}")
+
+    def nbytes(self) -> int:
+        return sum(DOOR_ITEMS[k] * DOOR_BYTES[k] for k in self.procs)
+
+    def objects(self) -> dict:
+        """{RADOS data object: its payload}: the 4 MiB objects each door
+        stripes its bodies into."""
+        from ceph_tpu_torch.client.striper import object_name
+        from ceph_tpu_torch.fs import data_oid as fs_oid
+        from ceph_tpu_torch.rbd import data_oid as rbd_oid
+        from ceph_tpu_torch.rgw import obj_soid
+        O = DOORS_OBJECT_BYTES
+        names = {"s3": lambda i, n: object_name(
+                     obj_soid(DOORS_BUCKET, f"obj{i}"), n),
+                 "rbd": lambda i, n: rbd_oid(f"image{i}", n),
+                 "cephfs": lambda i, n: fs_oid(self.inos[i], n)}
+        out = {}
+        for kind in self.procs:
+            for i, nbytes in self.items(kind):
+                body = door_payload(self.seed, kind, i, nbytes)
+                for n in range(len(body) // O):
+                    out[names[kind](i, n)] = body[n * O:(n + 1) * O]
+        return out
+
+    def close(self) -> None:
+        for procs in self.procs.values():
+            procs.close()
+        self.procs = {}
+
+
+def doors_pools_cli(cluster, profile_name: str, profile: dict,
+                    pg_num: int, meta_pg_num: int, settings: dict) -> dict:
+    """Phase 10's pools through the port's ceph CLI: the EC base, the
+    replicated writeback tier over it with `settings`, the CephFS
+    metadata pool; each clean.  Returns {step: seconds}."""
+    t0 = time.perf_counter()
+    cli(cluster, "osd", "erasure-code-profile", "set", profile_name,
+        *(f"{k}={v}" for k, v in profile.items()))
+    for words in ([DOORS_POOL, str(pg_num), str(pg_num), "erasure",
+                   profile_name], [DOORS_HOT, str(pg_num)],
+                  [DOORS_META, str(meta_pg_num)]):
+        cli(cluster, "osd", "pool", "create", *words)
+    osdmap = cluster.osdmap()
+    for name, n in ((DOORS_POOL, pg_num), (DOORS_HOT, pg_num),
+                    (DOORS_META, meta_pg_num)):
+        cluster.wait_clean(osdmap.pool_by_name(name).id, n, CLUSTER_TIMEOUT)
+    pools_s = time.perf_counter() - t0
+    cli(cluster, "osd", "tier", "add", DOORS_POOL, DOORS_HOT)
+    cli(cluster, "osd", "tier", "cache-mode", DOORS_HOT, "writeback")
+    cli(cluster, "osd", "tier", "set-overlay", DOORS_POOL, DOORS_HOT)
+    for var, val in settings.items():
+        cli(cluster, "osd", "pool", "set", DOORS_HOT, var, val)
+    return {"pools_s": pools_s,
+            "tier_s": time.perf_counter() - t0 - pools_s}
+
+
+def start_doors_daemons(cluster, port: int, card) -> dict:
+    """The MDS and the RGW as processes, each with its admin socket;
+    each boot's seconds and, with `card` (card_used_mib), the card's
+    memory before and after it.  Raises if either initialised CUDA."""
+    from ceph_tpu_torch.utils.admin_socket import admin_command
+    out = {"mib_before": card() if card else None}
+    for name, args in (
+            ("mds.a", ["mds", "--name", "a", "--metadata-pool", DOORS_META,
+                       "--data-pool", DOORS_POOL]),
+            (DOORS_RGW, ["rgw", "--port", str(port), "--access-key",
+                         DOORS_ACCESS, "--secret-key", DOORS_SECRET,
+                         "--data-pool", DOORS_POOL])):
+        out[f"{name}_boot_s"] = cluster.start_daemon(name, args)
+        out[f"{name}_mib_after"] = card() if card else None
+        entity = "client.rgw" if name == DOORS_RGW else name
+        status = admin_command(cluster.asok(entity), "status")
+        if status.get("cuda_initialized") is not False:
+            raise AssertionError(f"{name} initialised CUDA: {status}")
+    return out
+
+
+def doors_shards(cluster, osdmap, base_id: int, oid: str, want: dict,
+                 shards=None) -> list:
+    """The shards of `oid` (or those in `shards`) whose holder's file
+    differs from `want` ({shard: (sha256, crc, crc_prefix, size)}), read
+    with `dump_shard` over each holder's admin socket."""
+    from ceph_tpu_torch.utils.admin_socket import admin_command
+    pgid = osdmap.object_to_pg(base_id, oid)
+    acting = osdmap.pg_to_up_acting_osds(pgid)[1]
+    bad = []
+    for shard in (range(len(acting)) if shards is None else shards):
+        got = admin_command(cluster.asok(f"osd.{acting[shard]}"), {
+            "prefix": "dump_shard", "pgid": str(pgid),
+            "oid": f"{oid}.s{shard}"})
+        h = got.get("hinfo") or {}
+        if (got.get("sha256"), h.get("crc"), h.get("crc_prefix"),
+                h.get("size")) != want[shard]:
+            bad.append(shard)
+    return bad
+
+
+def shard_digests(payload: bytes, coding, native, crc_mod) -> dict:
+    """{shard: (sha256, crc, crc_prefix, size)} of the host oracle's
+    shard files of `payload` and their HashInfo."""
+    allc = shard_oracle(payload, coding, native, crc_mod)
+    full = len(payload) // (K * CLUSTER_UNIT)
+    out = {}
+    for shard in range(K + M):
+        want = allc[:, shard].tobytes()
+        out[shard] = (hashlib.sha256(want).hexdigest(),
+                      crc_mod.crc32c(0, want),
+                      crc_mod.crc32c(0, want[:full * CLUSTER_UNIT]),
+                      len(payload))
+    return out
+
+
+def osds_command(cluster, osds, cmd: dict) -> dict:
+    """One admin-socket command on every OSD in `osds`, concurrently;
+    {osd: answer}.  Raises on an answer with an error."""
+    from concurrent.futures import ThreadPoolExecutor
+    from ceph_tpu_torch.utils.admin_socket import admin_command
+    with ThreadPoolExecutor(len(osds)) as pool:
+        got = dict(zip(osds, pool.map(
+            lambda i: admin_command(cluster.asok(f"osd.{i}"), cmd), osds)))
+    bad = {i: a for i, a in got.items()
+           if isinstance(a, dict) and "error" in a}
+    if bad:
+        raise AssertionError(f"{cmd['prefix']}: {bad}")
+    return got
+
+
+def codecs_on_card(cluster) -> None:
+    """No OSD reports an EC codec degraded to the host (mon health)."""
+    rv, out, _ = cluster.admin.mon_command({"prefix": "health"})
+    if rv != 0 or "EC device degraded" in out:
+        raise AssertionError(f"health: {rv} {out}")
+
+
+def phase_doors_daemons(cluster, rng, live: list, victim2: int,
+                        pool14: int, doors10=None) -> dict:
+    """Phase 15 (see the module docstring) on phase 14's cluster, `live`
+    its OSDs up; `victim2` phase 14's second killed OSD.  Adds the MDS
+    and the RGW to `cluster` (its stop() stops them) and returns the
+    phase's figures beside phase 10's (`doors10`, None when phase 10
+    did not run)."""
+    from ceph_tpu_torch import native
+    from ceph_tpu_torch.erasure.registry import registry
+    from ceph_tpu_torch.ops import crc32c as crc_mod
+    t_start = time.perf_counter()
+    setup = {}
+    # the second victim started again, its MemStore empty: 12 OSDs in.
+    # With 11 in, CRUSH leaves a hole in some PG of a k+m = 11 pool
+    t0 = time.perf_counter()
+    setup["restart_boot_s"] = cluster.start_daemon(f"osd.{victim2}", None)
+    live.append(victim2)
+    cluster.wait_osds(lambda m: m.is_up(victim2), CLUSTER_TIMEOUT,
+                      f"osd.{victim2} up again")
+    cluster.wait_clean(pool14, CLUSTER_PG_NUM, CLUSTER_RECOVERY_TIMEOUT)
+    setup["restart_clean_s"] = time.perf_counter() - t0
+    settings = {"target_max_objects": str(DOORS_TARGET_MAX_OBJECTS),
+                **DOORS_HIT_SET}
+    setup.update(doors_pools_cli(cluster, DOORS_PROFILE_NAME,
+                                 DOORS_PROFILE, DOORS_PG_NUM,
+                                 DOORS_META_PG_NUM, settings))
+    osdmap = cluster.osdmap()
+    base_id = osdmap.pool_by_name(DOORS_POOL).id
+    port = free_port()
+    boot = start_doors_daemons(cluster, port, card_used_mib)
+    # the flushes' encodes, the degraded promotes' decodes, the scrub
+    # CRC of small and whole-object shards
+    t0 = time.perf_counter()
+    warm = ec_warm(cluster, live, DOORS_POOL,
+                   (CLUSTER_UNIT, DOORS_OBJECT_BYTES // K))
+    setup["warm_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    doors = DoorProcs(cluster.conf_path, port, SEED)
+    try:
+        doors.setup()
+        setup["clients_s"] = time.perf_counter() - t0
+        coding = registry.factory("tpu", {
+            k: v for k, v in DOORS_PROFILE.items()
+            if k != "plugin"}).coding_matrix
+        emit("doors_daemons_setup", osds=len(live), restarted=victim2,
+             base=DOORS_POOL, tier=DOORS_HOT, pg_num=DOORS_PG_NUM,
+             tier_settings=settings,
+             s3=[S3_CLIENTS, S3_OBJECTS, S3_OBJECT_BYTES],
+             rbd=[RBD_CLIENTS, RBD_IMAGE_BYTES, RBD_ORDER],
+             cephfs=[FS_CLIENTS, FS_FILES, FS_FILE_BYTES],
+             setup=setup, boot=boot,
+             warm_shapes=warm["shapes"],
+             elapsed_s=time.perf_counter() - t_start)
+        out = {"setup": setup, "boot": boot}
+        hot = cluster.admin.open_ioctx(DOORS_HOT)
+
+        def tier_data():
+            return set(hot.list_objects()) & set(objects)
+
+        # -- window 1: writes ----------------------------------------------
+        before = osd_counters(cluster, live)
+        writes = doors.run("write")
+        d_write = daemons_window(cluster, live, before, "doors writes", ())
+        codecs_on_card(cluster)
+        objects = doors.objects()
+        want = {oid: shard_digests(body, coding, native, crc_mod)
+                for oid, body in objects.items()}
+
+        # -- window 2: flush, until the base holds every object ------------
+        before = osd_counters(cluster, live)
+        t0 = time.perf_counter()
+        pending = set(objects)
+        while pending:           # shard 0, as each flush lands
+            osdmap = cluster.osdmap()
+            pending = {o for o in pending if doors_shards(
+                cluster, osdmap, base_id, o, want[o], shards=[0])}
+            if pending:
+                if time.perf_counter() - t0 > DOORS_TIMEOUT:
+                    raise TimeoutError(f"flush: {sorted(pending)[:8]}")
+                time.sleep(0.25)
+        while True:              # then every shard of every object
+            osdmap = cluster.osdmap()
+            bad = {o: b for o in objects
+                   if (b := doors_shards(cluster, osdmap, base_id, o,
+                                         want[o]))}
+            if not bad:
+                break
+            if time.perf_counter() - t0 > DOORS_TIMEOUT:
+                raise AssertionError(f"base shards != oracle: {bad}")
+            time.sleep(0.25)
+        flush_s = time.perf_counter() - t0
+        d_flush = daemons_window(cluster, live, before, "doors flush", ())
+        codecs_on_card(cluster)
+        enc = d_write["dev_dispatches_enc"] + d_flush["dev_dispatches_enc"]
+        if not enc:
+            raise AssertionError("doors writes and flush: no device encode")
+        step = dict(write=writes, write_window=d_write, flush_s=flush_s,
+                    flush_window=d_flush, data_objects=len(objects),
+                    shards_checked_objects=len(objects),
+                    elapsed_s=time.perf_counter() - t_start)
+        emit("doors_daemons_flush", **step)
+        out.update(step)
+
+        # -- window 3: promote -----------------------------------------------
+        evict_s = wait_for(lambda: not tier_data(), DOORS_TIMEOUT,
+                           "tier evict")
+        osds_command(cluster, live, {"prefix": "cache drop"})
+        before = osd_counters(cluster, live)
+        reads = doors.run("read")
+        d_prom = daemons_window(cluster, live, before, "doors promote", ())
+        codecs_on_card(cluster)
+        doors.check_sizes()
+        step = dict(read=reads, promote_gbs=reads["gbs"], evict_s=evict_s,
+                    promote_window=d_prom,
+                    elapsed_s=time.perf_counter() - t_start)
+        emit("doors_daemons_promote", **step)
+        out.update(step)
+
+        # -- window 4: deep scrub of the base ----------------------------------
+        osds_command(cluster, live, {"prefix": "cache drop"})
+        before = osd_counters(cluster, live)
+        s_wall, results = deep_scrub_procs(cluster, base_id, CLUSTER_TIMEOUT)
+        bad = {p: r for p, r in results.items() if r["inconsistent"]}
+        if bad:
+            raise AssertionError(f"doors deep scrub: {bad}")
+        d_scrub = daemons_window(cluster, live, before, "doors deep scrub",
+                                 ("crc",))
+        codecs_on_card(cluster)
+        step = dict(scrub_gbs=len(objects) * DOORS_OBJECT_BYTES * (K + M)
+                    / K / s_wall / 1e9, scrub_s=s_wall,
+                    scrub_checked=sum(r["checked"] for r in results.values()),
+                    scrub_window=d_scrub,
+                    elapsed_s=time.perf_counter() - t_start)
+        emit("doors_daemons_scrub", **step)
+        out.update(step)
+
+        # -- window 5: degraded promote ----------------------------------------
+        osdmap = cluster.osdmap()
+        holders = sorted({o for oid in objects for o in
+                          osdmap.pg_to_up_acting_osds(osdmap.object_to_pg(
+                              base_id, oid))[1] if o in live})
+        victim = holders[int(rng.integers(len(holders)))]
+        down_s = kill_and_wait_down(cluster, victim,
+                                    float(CLUSTER_CONF["osd_heartbeat_grace"]))
+        live.remove(victim)
+        evict2_s = wait_for(lambda: not tier_data(), DOORS_TIMEOUT,
+                            "tier evict after the kill")
+        osds_command(cluster, live, {"prefix": "cache drop"})
+        before = osd_counters(cluster, live)
+        reads = doors.run("read")
+        d_deg = daemons_window(cluster, live, before,
+                               "doors degraded promote", ("dec",))
+        codecs_on_card(cluster)
+        step = dict(degraded_read=reads, degraded_promote_gbs=reads["gbs"],
+                    victim3=victim, marked_down3_s=down_s,
+                    evict2_s=evict2_s, degraded_promote_window=d_deg,
+                    elapsed_s=time.perf_counter() - t_start)
+        emit("doors_daemons_degraded_promote", **step)
+        out.update(step)
+    finally:
+        doors.close()
+    out["beside_phase10"] = doors_beside(doors10, out)
+    emit("doors_daemons_vs_one_process", **out["beside_phase10"])
+    return out
+
+
+def wait_for(pred, timeout: float, what: str) -> float:
+    """Poll `pred` on the real clock; returns the seconds waited."""
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > timeout:
+            raise TimeoutError(what)
+        time.sleep(0.25)
+    return time.perf_counter() - t0
+
+
+def doors_beside(doors10, doors15) -> dict:
+    """Phase 10's and phase 15's door figures side by side: per door
+    write and read GB/s with op p50/p99, flush s, promote, scrub and
+    degraded-promote GB/s (phase 10: None where it did not run)."""
+    def rates(win):
+        return {k: [v["gbs"], v["lat_ms"]["p50"], v["lat_ms"]["p99"]]
+                for k, v in win.items() if isinstance(v, dict)}
+
+    one = doors10 or {}
+    rows = {"one_process": None if doors10 is None else {
+                "write": rates(one["flush"]["write"]),
+                "promote_read": rates(one["promote"]["read"]),
+                "flush_s": one["flush"]["flush_s"],
+                "promote_gbs": one["promote"]["promote_gbs"],
+                "scrub_gbs": one["scrub"]["scrub_gbs"],
+                "degraded_promote_gbs": one["degraded"][
+                    "degraded_promote_gbs"]},
+            "processes": {
+                "write": rates(doors15["write"]),
+                "promote_read": rates(doors15["read"]),
+                "flush_s": doors15["flush_s"],
+                "promote_gbs": doors15["promote_gbs"],
+                "scrub_gbs": doors15["scrub_gbs"],
+                "degraded_promote_gbs": doors15["degraded_promote_gbs"]}}
+    return rows
+
+
+def run_daemons_phase(rng, doors10=None) -> dict:
+    """Phases 14 and 15 with this process's card memory released first;
+    prints the kernel launches each phase's counted windows made in the
+    OSD processes (each OSD's perf dump).  Every kernel entry point must
+    launch in phase 15."""
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    out = phase_daemons(rng)
-    launches = {}
-    for w in ("write_window", "scrub_window", "degraded_window",
-              "recovery_window", "degraded2_window"):
-        for name, k in window_launches(out[w]).items():
-            launches[name] = launches.get(name, 0) + k
-    emit("daemons_launches", launches=launches)
+    out = phase_daemons(rng, doors10)
+
+    def launched(result, windows) -> dict:
+        launches = {}
+        for w in windows:
+            for name, k in window_launches(result[w]).items():
+                launches[name] = launches.get(name, 0) + k
+        return launches
+
+    emit("daemons_launches", launches=launched(out, (
+        "write_window", "scrub_window", "degraded_window",
+        "recovery_window", "degraded2_window")))
+    doors = launched(out["doors"], (
+        "write_window", "flush_window", "promote_window", "scrub_window",
+        "degraded_promote_window"))
+    emit("doors_daemons_launches", launches=doors)
+    idle = [name for name in KERNEL_META if doors.get(name, 0) < 1]
+    if idle:
+        raise AssertionError(f"phase 15 launched no {idle}")
     return out
 
 
@@ -3359,8 +3919,10 @@ def main(argv=None) -> int:
                     help="build the kernels and run phase 13 alone (the "
                     "reference's device-path test files on the card)")
     ap.add_argument("--daemons-only", action="store_true",
-                    help="build the kernels and run phase 14 alone (phase "
-                    "9's cluster as mon, OSD and mgr processes)")
+                    help="build the kernels and run phases 14 and 15 alone "
+                    "(phase 9's cluster as mon, OSD and mgr processes, "
+                    "then phase 10's doors on it with the MDS and RGW as "
+                    "processes)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3434,8 +3996,9 @@ def main(argv=None) -> int:
     payloads = written = None
     step, cluster = phase_cluster(rng, cuda_ec, ec_pipeline, hbm_cache,
                                   native, crc_mod, device, counts)
-    phase_doors(cluster, step["victim"], rng, cuda_ec, ec_pipeline,
-                hbm_cache, native, crc_mod, device, counts)
+    doors10 = phase_doors(cluster, step["victim"], rng, cuda_ec,
+                          ec_pipeline, hbm_cache, native, crc_mod, device,
+                          counts)
     phase_mesh(rng, device, cuda_ec, ec_kernels, gf, registry, native,
                crc_mod, ec_pipeline, ecutil, counts)
     phase_tools(rng, cuda_ec, ec_pipeline, device, counts)
@@ -3446,7 +4009,7 @@ def main(argv=None) -> int:
     if idle:
         raise AssertionError(f"kernels not launched on the main path: {idle}")
     phase_reference_suite(cuda_ec, ec_pipeline, hbm_cache, device)
-    run_daemons_phase(rng)
+    run_daemons_phase(rng, doors10)
 
     kernels = []
     for name, (src, replaces) in KERNEL_META.items():
