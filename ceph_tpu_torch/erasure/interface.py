@@ -135,6 +135,33 @@ class ErasureCodeInterface(abc.ABC):
             rope.append(memoryview(np.ascontiguousarray(out[i])))
         return rope
 
+    # -- what the OSD's EC path sends to the device ------------------------
+
+    def device_backend(self):
+        """The TorchBackend whose measured routing serves this codec's
+        own region math (the OSD's perf dump reports it), None when the
+        codec runs on the host only."""
+        return None
+
+    def device_shapes(self, stripes: Iterable[int], unit: int) -> list:
+        """Every device call the OSD's EC path can make with this codec
+        at chunks of `unit` bytes, for whole objects of each stripe
+        count in `stripes`, as matrix_codec.DeviceShape entries (what
+        the OSD's `ec warm` warms).  Here the path of this base class:
+        encode_stripes_with_crcs encodes stripe by stripe and
+        ecutil.decode_object decodes stripe by stripe, up to m lost."""
+        return self.stripe_encode_shapes(unit) + self.decode_shapes(
+            unit, range(1, self.get_coding_chunk_count() + 1))
+
+    def stripe_encode_shapes(self, unit: int) -> list:
+        """The device calls of encode_chunks on one (k, unit) stripe."""
+        return []
+
+    def decode_shapes(self, unit: int, lost: Iterable[int]) -> list:
+        """The device calls of decode_chunks rebuilding r chunks of one
+        stripe of `unit`-byte chunks, for each r in `lost`."""
+        return []
+
     # -- stripe batch API (ECUtil::encode per-stripe loop, collapsed) -----
 
     def stat_counters(self) -> dict:

@@ -26,7 +26,7 @@ Two chunk representations, matching the reference's two code families
 from __future__ import annotations
 
 import math
-from typing import Mapping, Sequence
+from typing import Iterable, Mapping, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -116,6 +116,24 @@ TECHNIQUES: dict[str, tuple] = {
 
 # techniques whose natural word size is not 8
 TECH_DEFAULT_W = {"liberation": 7, "blaum_roth": 6, "liber8tion": 8}
+
+# TorchBackend fn kind of each chunk representation
+DEVICE_KIND = {REP_BYTES: "bytes", REP_PACKETS: "packets", REP_BITS: "bits"}
+
+
+class DeviceShape(NamedTuple):
+    """One device call a codec can make: warm it with
+    ``backend.device_fn_if_ready(kind, matrix, extra, shape, device)``.
+    `lanes`: the call goes through the dispatch pipeline, so it is
+    warmed on every lane's device; otherwise it is a synchronous
+    ``apply_*`` call on the backend's own device."""
+
+    backend: "TorchBackend"
+    kind: str
+    matrix: np.ndarray
+    extra: tuple
+    shape: tuple
+    lanes: bool = False
 
 
 # ---------------------------------------------------------------------------
@@ -435,6 +453,17 @@ class TorchBackend:
         when dispatching to the device and slice the result."""
         return ec_pipeline.pad_batch(chunks)
 
+    def sync_shapes(self, kind: str, matrix: np.ndarray, extra: tuple,
+                    shape: tuple) -> list[DeviceShape]:
+        """The device call apply_<kind>(matrix, chunks) makes for chunks
+        of `shape`: [] under MIN_DEVICE_BYTES (always the host), else the
+        one batch shape it sends (S padded as pad_batch pads it)."""
+        if math.prod(shape) < self.MIN_DEVICE_BYTES:
+            return []
+        if len(shape) == 3:
+            shape = (ec_pipeline.next_bucket(shape[0]), *shape[1:])
+        return [DeviceShape(self, kind, matrix, tuple(extra), tuple(shape))]
+
     def apply_bytes(self, matrix: np.ndarray, chunks) -> np.ndarray:
         chunks = np.asarray(chunks, dtype=np.uint8)
         if chunks.nbytes < self.MIN_DEVICE_BYTES:
@@ -674,6 +703,41 @@ class MatrixErasureCode(ErasureCode):
             self._decode_cache.clear()
         self._decode_cache[key] = out
         return out
+
+    # -- device shapes -----------------------------------------------------
+
+    def device_backend(self):
+        be = self.backend
+        return be if isinstance(be, TorchBackend) else None
+
+    def _lost_rows(self, r: int) -> np.ndarray:
+        """Decode rows of r lost chunks (readiness keys on their shape,
+        not their values): chunks 0..r-1 from the first k others."""
+        lost = list(range(r))
+        return self._decode_rows(
+            lost, [i for i in range(self.k + self.m) if i not in lost][:self.k])
+
+    def _sync_shapes(self, matrix: np.ndarray, shape: tuple) -> list:
+        be = self.device_backend()
+        if be is None or matrix.shape[0] == 0:
+            return []
+        extra = () if self.rep == REP_BYTES else (self.w, self.packetsize)
+        return be.sync_shapes(DEVICE_KIND[self.rep], matrix, extra, shape)
+
+    def stripe_encode_shapes(self, unit: int) -> list:
+        return self._sync_shapes(self.coding_matrix, (self.k, unit))
+
+    def decode_shapes(self, unit: int, lost: Iterable[int]) -> list:
+        return [s for r in lost
+                for s in self._sync_shapes(self._lost_rows(r), (self.k, unit))]
+
+    def device_shapes(self, stripes: Iterable[int], unit: int) -> list:
+        # encode_stripes_with_crcs encodes an object in one batch;
+        # ecutil.decode_object decodes it stripe by stripe
+        return [s for S in stripes
+                for s in self._sync_shapes(self.coding_matrix,
+                                           (S, self.k, unit))] + \
+            self.decode_shapes(unit, range(1, self.m + 1))
 
     def encode_stripes_with_crcs(self, stripes) -> tuple:
         """Batched stripes: one batched matmul for all S stripes, then

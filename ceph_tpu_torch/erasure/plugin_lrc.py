@@ -45,6 +45,8 @@ class ErasureCodeLrc(ErasureCode):
         self._registry = registry
         self.mapping = ""
         self.layers: list[_Layer] = []
+        self._full_matrix: np.ndarray | None = None
+        self._backend = None
 
     # -- init --------------------------------------------------------------
 
@@ -101,6 +103,12 @@ class ErasureCodeLrc(ErasureCode):
             raise ErasureCodeError(
                 f"mapping positions {missing} produced by no layer")
         self._compose_matrix()
+        # the composed matrix's region math rides the same measured
+        # router as the matrix plugins (`backend=host` pins the host
+        # oracle); layer sub-codecs stay host-pinned for repair paths
+        from .plugin_jerasure import backend_from_profile
+        self._backend = (None if self._full_matrix is None
+                         else backend_from_profile(profile))
 
     def _compose_matrix(self) -> None:
         """Flatten the layer composition into ONE (m_total x k) coding
@@ -149,10 +157,6 @@ class ErasureCodeLrc(ErasureCode):
         coding_pos = [i for i, ch in enumerate(self.mapping)
                       if ch != "D"]
         self._full_matrix = np.stack([rows[p] for p in coding_pos])
-        # region math rides the same measured router as the matrix
-        # plugins (layer sub-codecs stay host-pinned for repair paths)
-        from .matrix_codec import TorchBackend
-        self._backend = TorchBackend()
 
     @staticmethod
     def _parse_layer_profile(text: str) -> dict[str, str]:
@@ -236,7 +240,7 @@ class ErasureCodeLrc(ErasureCode):
 
     def encode_chunks(self, data_chunks: np.ndarray) -> np.ndarray:
         data_chunks = np.asarray(data_chunks, dtype=np.uint8)
-        if getattr(self, "_full_matrix", None) is not None:
+        if self._full_matrix is not None:
             return self._backend.apply_bytes(self._full_matrix,
                                              data_chunks)
         L = data_chunks.shape[1]
@@ -254,6 +258,29 @@ class ErasureCodeLrc(ErasureCode):
                 buf[pos] = parity[idx]
         other_pos = [i for i, ch in enumerate(self.mapping) if ch != "D"]
         return buf[np.asarray(other_pos)]
+
+    # -- device shapes -----------------------------------------------------
+
+    def device_backend(self):
+        from .matrix_codec import TorchBackend
+        be = self._backend
+        return be if isinstance(be, TorchBackend) else None
+
+    def stripe_encode_shapes(self, unit: int) -> list:
+        if self._full_matrix is not None:
+            be = self.device_backend()
+            return [] if be is None else be.sync_shapes(
+                "bytes", self._full_matrix, (), (self.k, unit))
+        return [s for layer in self.layers if layer.coding_positions
+                for s in layer.codec.stripe_encode_shapes(unit)]
+
+    def decode_shapes(self, unit: int, lost) -> list:
+        # decode_chunks rebuilds one position at a time, each through
+        # the cheapest layer that holds it
+        if not list(lost):
+            return []
+        return [s for layer in self.layers
+                for s in layer.codec.decode_shapes(unit, (1,))]
 
     # -- decode ------------------------------------------------------------
 

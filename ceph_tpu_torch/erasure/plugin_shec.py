@@ -201,6 +201,20 @@ class ErasureCodeShec(ErasureCode):
         fetch, _, _, _ = self._plan(want, avail)
         return sorted(fetch)
 
+    # -- device shapes (decode solves on the host) --------------------------
+
+    def device_backend(self):
+        from .matrix_codec import TorchBackend
+        be = self.backend
+        return be if isinstance(be, TorchBackend) else None
+
+    def stripe_encode_shapes(self, unit: int) -> list:
+        be = self.device_backend()
+        if be is None:
+            return []
+        return be.sync_shapes("bytes", self.coding_matrix, (),
+                              (self.k, unit))
+
     # -- encode / decode ---------------------------------------------------
 
     def encode_chunks(self, data_chunks: np.ndarray) -> np.ndarray:

@@ -47,8 +47,8 @@ from ..ops import pipeline as ec_pipeline
 from ..utils import faults
 from ..utils.dout import DoutLogger
 from .interface import ErasureCodeError
-from .matrix_codec import (REP_BYTES, TECHNIQUES, MatrixErasureCode,
-                           NumpyBackend, TorchBackend)
+from .matrix_codec import (REP_BYTES, TECHNIQUES, DeviceShape,
+                           MatrixErasureCode, NumpyBackend, TorchBackend)
 from .registry import ErasureCodePlugin
 
 
@@ -323,6 +323,25 @@ class ErasureCodeTpu(MatrixErasureCode):
                 for k in [k for k in self._channels if k[0] == "dec"]:
                     del self._channels[k]
             return self._channels.setdefault(key, chan)
+
+    def device_shapes(self, stripes, unit: int) -> list:
+        """Byte-matrix techniques: the fused encode and the rebuild
+        decodes of 1..m lost chunks at each (S, k, unit) batch, through
+        the pipeline's lanes.  Packet and bit-matrix techniques encode
+        and decode those batches synchronously (apply_*)."""
+        be = self.device_backend()
+        if be is None:
+            return []
+        batches = [(S, self.k, unit) for S in stripes]
+        decodes = [self._lost_rows(r) for r in range(1, self.m + 1)]
+        if self.rep != REP_BYTES:
+            return [s for mat in [self.coding_matrix, *decodes]
+                    for shape in batches
+                    for s in self._sync_shapes(mat, shape)]
+        return [DeviceShape(be, "fused", self.coding_matrix, (unit,),
+                            shape, lanes=True) for shape in batches] + \
+            [DeviceShape(be, "bytes", rows, (), shape, lanes=True)
+             for rows in decodes for shape in batches]
 
     # -- batched stripe API (device-native entry points) -------------------
 

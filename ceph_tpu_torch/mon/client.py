@@ -320,13 +320,19 @@ class MonClient(Dispatcher):
         if msg.full is not None:
             full = OSDMap.decode(msg.full)
             if full.epoch >= self.osdmap.epoch:
-                # pools first learned from a FULL map are of unknown
-                # age (boot catch-up, gap refetch): we did NOT watch
-                # them come to life — a consumer instantiating their
-                # pgs fresh must assume data may already exist
-                # elsewhere (see pool_birth_witnessed)
-                self.pool_births_witnessed.difference_update(
-                    set(full.pools) - set(self.osdmap.pools))
+                # pools first learned from the FIRST map this process
+                # holds (boot catch-up) are of unknown age: we did NOT
+                # watch them come to life — a consumer instantiating
+                # their pgs fresh must assume data may already exist
+                # elsewhere (see pool_birth_witnessed).  A pool new to a
+                # map we already held (a gap refetch, a new mon session)
+                # was born while we ran, as an incremental's would be
+                born = set(full.pools) - set(self.osdmap.pools)
+                if before > 0:
+                    self.pool_births_witnessed.update(born)
+                else:
+                    self.pool_births_witnessed.difference_update(born)
+                self.pool_births_witnessed.intersection_update(full.pools)
                 self.osdmap = full
         for blob in msg.incrementals:
             inc = denc.loads(blob)

@@ -503,8 +503,8 @@ class OSDDaemon(Dispatcher, RecoveryService, ScrubService):
         from ..ops import cuda_ec
         out["ec_pipeline"]["launches"] = cuda_ec.launch_counts()
         for name, codec in self._ec_codecs.items():
-            backend = getattr(codec, "backend", None)
-            if hasattr(backend, "perf_snapshot"):
+            backend = codec.device_backend()
+            if backend is not None:
                 out["ec_codecs"][name]["routing"] = \
                     backend.perf_snapshot()
                 xo = backend.crossover_estimate()
@@ -732,13 +732,15 @@ class OSDDaemon(Dispatcher, RecoveryService, ScrubService):
         return {"dropped": dropped}
 
     def _asok_ec_warm(self, cmd: dict) -> dict:
-        """`ec warm`: the EC pool's codec warm on every pipeline lane at
-        each padded batch of `stripes` stripes (the fused encode, and
-        the decodes of 1..m data rows), and the scrub CRC channel at each
-        padded row count up to osd_deep_scrub_stripe_batch of each of
-        `scrub_sizes` bytes, before traffic meets those shapes (a first
-        call at a new shape serves from the host while its kernels
-        warm).  Returns the shapes and the seconds."""
+        """`ec warm`: every device call the EC pool's codec can make on
+        this OSD's path warm before traffic meets it (a first call at a
+        new shape serves from the host while its kernels warm): the
+        codec's device_shapes at each padded batch of `stripes` stripes
+        (pipeline calls on every lane, synchronous ones on the codec's
+        own device), and the scrub CRC channel at each padded row count
+        up to osd_deep_scrub_stripe_batch of each of `scrub_sizes`
+        bytes, on every lane.  Returns the shapes, their count by kind
+        and the seconds."""
         from ..ops import pipeline as ec_pipeline
         from .backend_ec import pool_stripe_info
         t0 = time.monotonic()
@@ -746,30 +748,24 @@ class OSDDaemon(Dispatcher, RecoveryService, ScrubService):
         if pool is None or not pool.is_erasure:
             raise ValueError(f"no EC pool {cmd.get('pool')!r}")
         codec = self.get_ec_codec(pool)
-        be, coding = codec.backend, codec.coding_matrix
-        k, km = codec.get_data_chunk_count(), codec.get_chunk_count()
         unit = pool_stripe_info(self.osdmap, pool, codec).chunk_size
         buckets = sorted({ec_pipeline.next_bucket(int(n))
                           for n in cmd.get("stripes", ())})
-        decodes = []
-        for r in range(1, km - k + 1):
-            lost = list(range(r))
-            decodes.append(codec._decode_rows(
-                lost, [i for i in range(km) if i not in lost][:k]))
+        lanes = ec_pipeline.get().lane_devices()
         rows = int(self.conf.osd_deep_scrub_stripe_batch)
-        waits = []
-        for dev in ec_pipeline.get().lane_devices():
-            for S in buckets:
-                shape = (S, k, unit)
-                waits.append(lambda d=dev, sh=shape: be.fused_fn_if_ready(
-                    coding, sh, d))
-                waits += [lambda d=dev, sh=shape, mat=mat:
-                          be.device_fn_if_ready("bytes", mat, (), sh, d)
-                          for mat in decodes]
-            waits += [lambda d=dev, n=int(size), j=j:
-                      ec_pipeline.crc_fn_if_ready(n, (1 << j, n), d)
-                      for size in cmd.get("scrub_sizes", ())
-                      for j in range(rows.bit_length())]
+        waits, kinds = [], {}
+        for s in codec.device_shapes(buckets, unit):
+            for dev in (lanes if s.lanes else [None]):
+                waits.append(lambda s=s, d=dev: s.backend.device_fn_if_ready(
+                    s.kind, s.matrix, s.extra, s.shape, d))
+                kinds[s.kind] = kinds.get(s.kind, 0) + 1
+        for dev in lanes:
+            for size in cmd.get("scrub_sizes", ()):
+                for j in range(rows.bit_length()):
+                    waits.append(lambda d=dev, n=int(size), j=j:
+                                 ec_pipeline.crc_fn_if_ready(
+                                     n, (1 << j, n), d))
+                    kinds["crc"] = kinds.get("crc", 0) + 1
         end = t0 + EC_WARM_TIMEOUT
         pending = waits
         while pending:
@@ -779,7 +775,8 @@ class OSDDaemon(Dispatcher, RecoveryService, ScrubService):
                                    f"{len(waits)} shapes still cold")
             if pending:
                 time.sleep(0.05)
-        return {"shapes": len(waits), "s": time.monotonic() - t0}
+        return {"shapes": len(waits), "kinds": kinds,
+                "s": time.monotonic() - t0}
 
     def _asok_dump_shard(self, cmd: dict) -> dict:
         """`dump_shard`: one object file of a PG as this OSD's store

@@ -54,9 +54,9 @@ host_cutover 64 KiB, the default 4 KiB stripe unit, pg_num 64, a 4 GiB
 HBM cache) and 8 librados clients.  After every OSD's codec is warm at
 every batch shape the windows reach, three counted windows run:
 
-  writes: 64 x 4 MiB write_full from the 8 clients (under
+  writes: 32 x 4 MiB write_full from the 8 clients (under
      torch.profiler: the card's busy share), read back, and 100,001 B
-     appended to 8 objects; a sample of 32 objects' shard files and
+     appended to 8 objects; a sample of 16 objects' shard files and
      HashInfo read from the OSD stores against the host oracle;
   scrub: deep scrub of every PG (once folded from the cache, then with
      the cache cleared through the CRC kernels), zero inconsistencies,
@@ -66,15 +66,15 @@ every batch shape the windows reach, three counted windows run:
      must then sit rebuilt by recovery on its new holder, equal to the
      lost bytes (no scrub repair: a shard left unrebuilt fails the phase).
 
-Phase 10 drives the front doors on phase 9's cluster (3 mons, 13
-MemStore OSDs, the one phase 9 killed marked out): an EC
+Phase 10 drives the front doors on a fresh cluster of phase 9's shape
+(3 mons, 13 MemStore OSDs, the one phase 9 killed marked out): an EC
 base pool "doors" (phase 9's code with host_cutover 1, the 4 KiB unit,
 pg_num 32) behind a replicated writeback cache tier "doors-hot" (a hit
 set, target_max_objects 8), a replicated CephFS metadata pool, one MDS
 and one RGW gateway.  At upstream's 4 MiB object size, 8 S3 clients PUT
-16 x 8 MiB over HTTP with SigV4, 2 RBD clients write their own 32 MiB
+8 x 8 MiB over HTTP with SigV4, 2 RBD clients write their own 16 MiB
 image in 4 MiB writes with the ObjectCacher on, and 2 CephFS clients
-write two 16 MiB files each: 256 MiB as 64 RADOS objects.  Four counted
+write two 8 MiB files each: 128 MiB as 32 RADOS objects.  Four counted
 windows:
 
   flush: from the first write until every data object sits in the base
@@ -133,10 +133,11 @@ OSDs and a mgr, each a process started with `python -m
 ceph_tpu_torch.daemons` from one conf file (cluster_conf()'s keys, the
 admin sockets under _scratch/daemons/asok, each OSD's HBM cache 4 GiB /
 13 so that the card holds phase 9's 4 GiB in all), and 8 client
-processes, each with its own Rados from the conf.  The pool, workload
-and seed are phase 9's: the profile set and the pool created through the
-port's ceph CLI, 64 x 4 MiB written, read back bit-exact in the client
-processes, 100,001 B appended to 8.  Before the windows every OSD
+processes, each with its own Rados from the conf.  The pool and seed
+are phase 9's, the workload twice its objects (with 32 in 64 PGs some
+OSD is primary of none): the profile set and the pool created through
+the port's ceph CLI, 64 x 4 MiB written, read back bit-exact in the
+client processes, 100,001 B appended to 8.  Before the windows every OSD
 process is warmed by the `ec warm` admin command at each batch and
 scrub shape the windows can give it (ec_warm), and each counted window
 is preceded by uncounted passes of the same ops on the same objects
@@ -172,9 +173,9 @@ port's ceph CLI; one MDS and one RGW process from the same conf file,
 each boot timed with the card's memory.used around it (neither may
 initialise CUDA: their `status` over the admin socket says);
 every OSD process warmed by ec_warm; then phase 10's widths from
-client processes: 8 S3 processes PUT 16 x 8 MiB with SigV4 to the RGW
-process, 2 RBD processes each write a 32 MiB image (order 22,
-ObjectCacher on), 2 CephFS processes each write two 16 MiB files
+client processes: 8 S3 processes PUT 8 x 8 MiB with SigV4 to the RGW
+process, 2 RBD processes each write a 16 MiB image (order 22,
+ObjectCacher on), 2 CephFS processes each write two 8 MiB files
 through the MDS process.  Windows, each counted from every OSD's `perf
 dump`: writes; flush, until every shard file of every door object and
 its HashInfo, read over the holders' admin sockets (`dump_shard`),
@@ -192,8 +193,51 @@ the body's MD5).  It prints per-door GB/s and op p50/p99, flush s,
 promote, scrub and degraded-promote GB/s beside phase 10's from the
 same run, the MDS and RGW boot seconds and card memory, and the
 launches.  The MDS and the RGW stop first at teardown and must exit 0
-on SIGTERM with the other daemons.  `--daemons-only` runs phases 14
-and 15 alone.
+on SIGTERM with the other daemons.  `--daemons-only` runs phases 14,
+15 and 17 alone.
+
+Phase 16 runs BASELINE.md configs #1-#5, each under its own plugin,
+through the port's codecs in this process, at bench.py's shapes: #1
+jerasure reed_sol_van k=2 m=1 at (128, 2, 4096), #2 isa reed_sol_van
+k=8 m=3 at (32, 8, 1 MiB), and one stripe of 1 MiB chunks of #3
+jerasure cauchy_good k=6 m=3 packetsize=32, #4 shec k=8 m=4 c=3 and #5
+lrc k=4 m=2 l=3.  Two codecs per config from the registry: one with its
+TorchBackend pinned to the device (host_cutover 1 on the instance), the
+host oracle with the profile's `backend=host`.  Every device shape the
+ops meet is warmed first (the codec's device_shapes, what `ec warm`
+warms).  Then, counted: the encode byte-exact against the oracle's;
+every erasure of one chunk and of two (where m allows) and 16 seeded
+ones of m chunks that minimum_to_decode accepts, decoded from the
+shard layout (chunk i of each stripe, concatenated, over the first
+stripes up to 1 MiB a chunk: all of #1's, #2's first) and byte-exact
+against the encoded chunks; gf_encode launched once per device call the routing
+recorded for the byte-matrix configs (#1, #2, #4, #5; #3's packet
+transform is plain PyTorch on the card, no kernel), and no call served
+by the host.  It prints CUDA-event ms (median of 10) and GB/s of the
+encode and of one decode beside the host oracle's ms on this machine's
+CPU.  `--plugins-only` runs this phase alone.
+
+Phase 17 runs the same five configs as EC pools of phase 14's cluster,
+after phase 15 and before the teardown: phase 15's killed OSD and phase
+14's out-marked one started again (their MemStores empty) and marked in,
+every pool clean on 13 OSDs; each profile set and its pool (pg_num 16,
+the default 4 KiB unit) created with the port's ceph CLI, the card's
+memory.used unchanged across it (the mons instantiate each plugin to
+validate its profile); then pool by pool: `ec warm` on every OSD, 16
+seeded 4 MiB write_full from 8 client processes (one set, which
+switches pools), read back byte-exact, every shard file and HashInfo of
+8 sampled objects (`dump_shard`) against the host oracle of that
+profile, deep scrub of every PG with no inconsistency.  Then one OSD
+drawn from the seed is SIGKILLed and left in: every object of every
+pool read degraded, byte-exact; the OSD started again and recovery
+until the PGs are clean and the counters still; the shard sample
+checked again.  gf_encode must launch in the write windows of pools #1
+and #2, crc32c_segments and crc32c_chain in every pool's scrub window.
+The measured routing, shec's and lrc's stripe-by-stripe OSD encode
+(under 64 KiB, so on the host) and the host's stripe-by-stripe degraded
+decodes are the reference's and are reported, not changed: per pool
+client GB/s and op p50/p99, each window's launches, the routing's
+device and host samples and crossover bytes, and the recovery seconds.
 
 After each window of phase 9 a fresh client's first `health` is timed
 (client creation included); one that waits past 5 s dumps every
@@ -933,13 +977,16 @@ def phase_traces(payloads, codec, ecutil, optracker):
 # one Rados handle each.
 
 CLUSTER_MONS, CLUSTER_OSDS, CLUSTER_PG_NUM = 3, 13, 64
-# 64 objects, not the 256 (1 GiB) of a full run: the cluster path runs
+# 32 objects, not the 256 (1 GiB) of a full run: the cluster path runs
 # at ~30 MB/s in one interpreter, and the whole script keeps to its
 # time budget (object size, profile and stripe unit are not cut)
-CLUSTER_OBJECTS, CLUSTER_OBJECT_BYTES = 64, 4 << 20
+CLUSTER_OBJECTS, CLUSTER_OBJECT_BYTES = 32, 4 << 20
+# phase 14 writes 64: with 32 objects in 64 PGs some OSD is the primary
+# of none, and every OSD process must dispatch on the card there
+DAEMONS_OBJECTS = 64
 CLUSTER_CLIENTS = 8
 CLUSTER_APPENDS, CLUSTER_APPEND_BYTES = 8, 100_001   # not a stripe multiple
-CLUSTER_SAMPLE = 32
+CLUSTER_SAMPLE = 16
 CLUSTER_UNIT = 4096                       # ecutil.DEFAULT_STRIPE_UNIT
 CLUSTER_POOL = "ecpool"
 # host_cutover = MIN_DEVICE_BYTES: measured routing cannot move a batch
@@ -957,7 +1004,7 @@ CLUSTER_CONF = {
     # the killed OSD is marked out by hand, after the degraded reads
     "mon_osd_down_out_interval": 1e6,
     "osd_ec_hbm_cache_bytes": HBM_CACHE_BYTES,
-    "osd_op_history_size": 4 * CLUSTER_OBJECTS,
+    "osd_op_history_size": 4 * DAEMONS_OBJECTS,
     "objecter_op_timeout": 120.0}
 
 
@@ -1469,11 +1516,10 @@ def phase_cluster(rng, cuda_ec, ec_pipeline, hbm_cache, native, crc_mod,
         if step["codecs_degraded"]:
             raise AssertionError("an OSD's codec degraded to the host")
         out.update(step)
-        return out, cluster
-    except BaseException:
+        return out
+    finally:
         cluster.stop()
         ec_pipeline.get().stop()
-        raise
 
 
 # Phase 10: the front doors (S3, RBD, CephFS) over a writeback cache
@@ -1495,9 +1541,9 @@ DOORS_HIT_SET = {"hit_set_count": "2", "hit_set_period": "10.0"}
 DOORS_OBJECT_BYTES = 4 << 20
 DOORS_ACCESS, DOORS_SECRET = "AKIACHIPSMOKE", "chip-smoke-secret"
 DOORS_BUCKET = "doors"
-S3_CLIENTS, S3_OBJECTS, S3_OBJECT_BYTES = 8, 16, 8 << 20
-RBD_CLIENTS, RBD_IMAGE_BYTES, RBD_ORDER = 2, 32 << 20, 22
-FS_CLIENTS, FS_FILES, FS_FILE_BYTES = 2, 2, 16 << 20
+S3_CLIENTS, S3_OBJECTS, S3_OBJECT_BYTES = 8, 8, 8 << 20
+RBD_CLIENTS, RBD_IMAGE_BYTES, RBD_ORDER = 2, 16 << 20, 22
+FS_CLIENTS, FS_FILES, FS_FILE_BYTES = 2, 2, 8 << 20
 DOORS_SAMPLE = 16
 DOORS_TIMEOUT = 300.0
 
@@ -1776,10 +1822,16 @@ class Doors:
                 raise AssertionError(f"{f"/file{i}"}: size {size}")
 
 
-def phase_doors(cluster, out_osd, rng, cuda_ec, ec_pipeline, hbm_cache,
-                native, crc_mod, device, tally):
-    """Phase 10 on phase 9's cluster, `out_osd` its OSD killed and
-    marked out; stops the cluster."""
+def phase_doors(out_osd, rng, cuda_ec, ec_pipeline, hbm_cache, native,
+                crc_mod, device, tally):
+    """Phase 10 on a fresh cluster of phase 9's shape, `out_osd` (phase
+    9's killed OSD) marked out.  Not on phase 9's own cluster: there,
+    after its windows, the in-process mons' paxos rounds ran slow (the
+    tier commands took 62-101 s against 10 s on a fresh cluster, and
+    once more than 10 minutes)."""
+    from ceph_tpu_torch.vstart import MiniCluster
+    cluster = MiniCluster(num_mons=CLUSTER_MONS, num_osds=CLUSTER_OSDS,
+                          conf=cluster_conf())
     try:
         return doors_windows(cluster, out_osd, rng, cuda_ec, ec_pipeline,
                              hbm_cache, native, crc_mod, device, tally)
@@ -1795,6 +1847,9 @@ def doors_windows(cluster, out_osd, rng, cuda_ec, ec_pipeline, hbm_cache,
 
     t_start = time.perf_counter()
     setup = {}                   # seconds of each setup step
+    cluster.start(timeout=120.0)
+    cluster.mark_osd_out(out_osd)
+    setup["boot_s"] = time.perf_counter() - t_start
     hbm_cache.get().clear()
     admin = cluster.client("client.doors_admin")
     setup["first_health"] = first_health(
@@ -2730,19 +2785,24 @@ class ProcCluster:
 def client_main(conf_path: str, name: str, pool: str, seed: int,
                 conn) -> None:
     """One client process: its own Rados from the conf; runs each
-    (op, items, tag) it is sent, items being (oid, payload index, bytes,
-    appended bytes) as objects() makes them, with the payloads of `tag`
+    (op, items, tag[, pool]) it is sent on `pool` unless the message
+    names another, items being (oid, payload index, bytes, appended
+    bytes) as objects() makes them, with the payloads of `tag`
     (object_payload), and answers (per-op seconds, errors)."""
     from ceph_tpu_torch.tools import connect_from_conf
     rados = connect_from_conf(conf_path, name)
     try:
-        io = rados.open_ioctx(pool)
+        ios = {pool: rados.open_ioctx(pool)}
         conn.send("ready")
         while True:
             msg = conn.recv()
             if msg is None:
                 break
-            op, items, tag = msg
+            op, items, tag, *other = msg
+            target = other[0] if other else pool
+            if target not in ios:
+                ios[target] = rados.open_ioctx(target)
+            io = ios[target]
             lat, errs = [], []
             for oid, i, nbytes, tail in items:
                 t0 = time.perf_counter()
@@ -2805,22 +2865,23 @@ class ClientProcs:
             if not c.poll(DAEMONS_BOOT_TIMEOUT) or c.recv() != "ready":
                 raise AssertionError("a client process did not connect")
 
-    def run(self, op: str, items, clients=None, tag=0):
+    def run(self, op: str, items, clients=None, tag=0, pool=None):
         """`op` ("write", "read", "append") on `items`
         with the payloads of `tag`, spread over the clients (or over the
-        first `clients`), concurrently; returns (wall seconds, per-op
-        seconds).  Raises the first error a client reported."""
-        wall, lat, _out = self.run_out(op, items, clients, tag)
+        first `clients`), concurrently, on the clients' pool or `pool`;
+        returns (wall seconds, per-op seconds).  Raises the first error
+        a client reported."""
+        wall, lat, _out = self.run_out(op, items, clients, tag, pool)
         return wall, lat
 
-    def run_out(self, op: str, items, clients=None, tag=0):
+    def run_out(self, op: str, items, clients=None, tag=0, pool=None):
         """run(), returning (wall seconds, per-op seconds, each item's
         result in item order) where the client's main answers results."""
         n = clients or len(self.conns)
         parts = [items[t::n] for t in range(n)]
         t0 = time.perf_counter()
         for c, part in zip(self.conns, parts):
-            c.send((op, part, tag))
+            c.send((op, part, tag) if pool is None else (op, part, tag, pool))
         lat, errs, out = [], [], [None] * len(items)
         for t, (c, part) in enumerate(zip(self.conns, parts)):
             if not c.poll(DAEMONS_CLIENT_TIMEOUT):
@@ -3034,19 +3095,24 @@ def primaries_of(osdmap, pool_id: int, n: int) -> list:
 def ec_warm(cluster, osds, pool: str, shard_sizes) -> dict:
     """`ec warm` on every OSD in `osds`: the pool's codec at each padded
     batch up to osd_ec_pipeline_max_batch or the largest object's
-    stripes (the fused encode, the decodes of 1..m rows), and the scrub
-    CRC over shards of each of `shard_sizes` bytes, before the windows
-    meet those shapes (a first call at a new shape serves from the host
-    while its kernels warm).  Returns the shapes and the slowest OSD's
-    seconds."""
+    stripes (every device call its codec's path makes: a tpu pool's
+    fused encode and decodes of 1..m rows), and the scrub CRC over
+    shards of each of `shard_sizes` bytes, before the windows meet those
+    shapes (a first call at a new shape serves from the host while its
+    kernels warm).  Returns the shapes, their count by kind and the
+    slowest OSD's seconds."""
     top = max(int(cluster_conf().osd_ec_pipeline_max_batch),
               max(shard_sizes) // CLUSTER_UNIT)
     got = osds_command(cluster, osds, {
         "prefix": "ec warm", "pool": pool,
         "stripes": [1 << j for j in range(top.bit_length())],
         "scrub_sizes": list(shard_sizes)})
+    kinds: dict = {}
+    for a in got.values():
+        for kind, k in a["kinds"].items():
+            kinds[kind] = kinds.get(kind, 0) + k
     return {"shapes": sum(a["shapes"] for a in got.values()),
-            "s": max(a["s"] for a in got.values())}
+            "kinds": kinds, "s": max(a["s"] for a in got.values())}
 
 
 def object_stripes(items) -> int:
@@ -3081,7 +3147,7 @@ def decode_share_ok(d: dict, stripes_read: int, what: str) -> float:
 
 
 def phase_daemons(rng, doors10=None):
-    """Phase 14, then phase 15 on its cluster (see the module
+    """Phase 14, then phases 15 and 17 on its cluster (see the module
     docstring); `doors10` is phase 10's result, None when it did not
     run."""
     import shutil
@@ -3098,7 +3164,7 @@ def phase_daemons(rng, doors10=None):
         "osd_ec_hbm_cache_bytes": HBM_CACHE_BYTES // CLUSTER_OSDS})
     clients = None
     osds = list(range(CLUSTER_OSDS))
-    n, nbytes = CLUSTER_OBJECTS, CLUSTER_OBJECT_BYTES
+    n, nbytes = DAEMONS_OBJECTS, CLUSTER_OBJECT_BYTES
     appended = set(range(CLUSTER_APPENDS))
     every = objects(range(n), appended)
     tails = objects(sorted(appended), appended)
@@ -3300,6 +3366,10 @@ def phase_daemons(rng, doors10=None):
         # -- phase 15: the doors as processes on this cluster --------------
         out["doors"] = phase_doors_daemons(cluster, rng, live, victim2,
                                            pool_id, doors10)
+
+        # -- phase 17: the plugins' pools on this cluster ------------------
+        out["plugins"] = phase_plugin_pools(cluster, rng, live, victim,
+                                            out["doors"]["victim3"])
 
         # -- teardown ----------------------------------------------------------
         codes = cluster.stop()
@@ -3878,10 +3948,10 @@ def doors_beside(doors10, doors15) -> dict:
 
 
 def run_daemons_phase(rng, doors10=None) -> dict:
-    """Phases 14 and 15 with this process's card memory released first;
-    prints the kernel launches each phase's counted windows made in the
-    OSD processes (each OSD's perf dump).  Every kernel entry point must
-    launch in phase 15."""
+    """Phases 14, 15 and 17 with this process's card memory released
+    first; prints the kernel launches each phase's counted windows made
+    in the OSD processes (each OSD's perf dump).  Every kernel entry
+    point must launch in phase 15."""
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     out = phase_daemons(rng, doors10)
@@ -3903,6 +3973,440 @@ def run_daemons_phase(rng, doors10=None) -> dict:
     idle = [name for name in KERNEL_META if doors.get(name, 0) < 1]
     if idle:
         raise AssertionError(f"phase 15 launched no {idle}")
+    plugins = {}
+    for name, pool in out["plugins"]["pools"].items():
+        plugins[name] = {w: pool[k] for w, k in (
+            ("write", "write_launches"), ("scrub", "scrub_launches"))}
+        plugins[name]["degraded_read"] = pool["degraded_read"]["launches"]
+    plugins["recovery"] = out["plugins"]["recovery_launches"]
+    emit("plugin_pools_launches", launches=plugins)
+    return out
+
+
+# -- phase 16: BASELINE.md configs #1-#5 through the port's codecs ---------
+
+# (BASELINE.md config, plugin, profile, (stripes, chunk bytes)): bench.py's
+# rows of bench_other_configs, config #1 its batched one, config #2 the
+# main path's (32, 8, 1 MiB); stripes None: one (k, chunk) stripe
+PLUGIN_CONFIGS = (
+    (1, "jerasure", {"k": "2", "m": "1", "technique": "reed_sol_van"},
+     (128, 4096)),
+    (2, "isa", {"k": "8", "m": "3", "technique": "reed_sol_van"},
+     (B_MAIN, L_MAIN)),
+    (3, "jerasure", {"k": "6", "m": "3", "technique": "cauchy_good",
+                     "packetsize": "32"}, (None, 1 << 20)),
+    (4, "shec", {"k": "8", "m": "4", "c": "3"}, (None, 1 << 20)),
+    (5, "lrc", {"k": "4", "m": "2", "l": "3"}, (None, 1 << 20)),
+)
+PLUGIN_PATTERNS = 16          # seeded erasure patterns of m chunks
+PLUGIN_HOST_RUNS = 3          # host oracle timing runs (median)
+PLUGIN_DECODE_CHUNK = 1 << 20  # decodes: the shard layout up to this
+
+
+def routing_samples(be) -> dict:
+    """{"dev": n, "host": n}: a TorchBackend's routing samples."""
+    out = {"dev": 0, "host": 0}
+    for (path, _b), ent in list(be._perf.items()):
+        out[path] += ent["n"]
+    return out
+
+
+def erasure_patterns(codec, rng) -> list:
+    """Every erasure of one chunk and of two (where m >= 2), and
+    PLUGIN_PATTERNS seeded ones of m chunks (where m > 2), each kept
+    only where the codec's minimum_to_decode accepts it (shec and lrc
+    recover some patterns only)."""
+    import itertools
+    from ceph_tpu_torch.erasure.interface import ErasureCodeError
+    n = codec.get_chunk_count()
+    m = n - codec.get_data_chunk_count()
+
+    def recoverable(lost) -> bool:
+        try:
+            codec.minimum_to_decode(lost, [i for i in range(n)
+                                           if i not in lost])
+        except ErasureCodeError:
+            return False
+        return True
+
+    out = [list(c) for r in (1, 2) if r <= m
+           for c in itertools.combinations(range(n), r)
+           if recoverable(list(c))]
+    drawn: set = set()
+    for _ in range(100 * PLUGIN_PATTERNS if m > 2 else 0):
+        lost = tuple(sorted(int(i) for i in rng.choice(n, m, replace=False)))
+        if lost not in drawn and recoverable(list(lost)):
+            drawn.add(lost)
+            if len(drawn) == PLUGIN_PATTERNS:
+                break
+    return out + [list(p) for p in sorted(drawn)]
+
+
+def plugin_codecs(registry, plugin: str, profile: dict):
+    """(codec on the device path, host oracle) of one profile: the first
+    with its TorchBackend pinned to the device (host_cutover 1 on the
+    instance), the second built with the profile's `backend=host`."""
+    dev = registry.factory(plugin, dict(profile))
+    host = registry.factory(plugin, {**profile, "backend": "host"})
+    be = dev.device_backend()
+    if be is None or host.device_backend() is not None:
+        raise AssertionError(f"{plugin} {profile}: device backend {be}, "
+                             f"host oracle's {host.device_backend()}")
+    be.HOST_CUTOVER_BYTES = 1
+    return dev, host
+
+
+def phase_plugins(rng, registry, cuda_ec, tally) -> list:
+    """Phase 16 (see the module docstring); returns each config's line.
+    Each config's ops run with the launch counts set to 0 just before
+    and read just after, warm-ups excluded, and are added to `tally`."""
+    rows = []
+    for config, plugin, profile, (S, L) in PLUGIN_CONFIGS:
+        t_start = time.perf_counter()
+        dev, host = plugin_codecs(registry, plugin, profile)
+        be = dev.device_backend()
+        k, n = dev.get_data_chunk_count(), dev.get_chunk_count()
+        data = rng.integers(0, 256, (k, L) if S is None else (S, k, L),
+                            dtype=np.uint8)
+        # decodes: chunk i of the first stripes, up to PLUGIN_DECODE_CHUNK
+        # (all 128 of #1's 4 KiB stripes, the first of #2's)
+        stripes = max(1, min(S or 1, PLUGIN_DECODE_CHUNK // L))
+        chunk = L * stripes
+        patterns = erasure_patterns(dev, rng)
+        # every device shape of the ops below warm before the counts: the
+        # encode's (the batch's first of device_shapes), the decodes'
+        encode = dev.stripe_encode_shapes(L) if S is None \
+            else dev.device_shapes([S], L)[:1]
+        warm = encode + dev.decode_shapes(
+            chunk, sorted({len(p) for p in patterns}))
+        warm_s = sum(wait_warm(lambda s=s: s.backend.device_fn_if_ready(
+            s.kind, s.matrix, s.extra, s.shape), f"config #{config} "
+            f"{s.kind} {s.shape}") for s in warm)
+
+        torch.cuda.synchronize()
+        cuda_ec.reset_launches()
+        before = routing_samples(be)
+        parity = np.asarray(dev.encode_chunks(data))
+        want = np.asarray(host.encode_chunks(data))
+        if not np.array_equal(parity, want):
+            raise AssertionError(f"config #{config}: device encode != "
+                                 f"host oracle")
+        enc = time_ms(lambda x: dev.encode_chunks(x), [data] * TIMED_RUNS)
+        allc = np.concatenate([data, parity], axis=-2)
+        if S is not None:
+            allc = allc[:stripes]
+        chunks = [np.ascontiguousarray(allc[..., i, :]).reshape(-1)
+                  for i in range(n)]
+        for lost in patterns:
+            have = {i: c for i, c in enumerate(chunks) if i not in lost}
+            got = dev.decode(lost, have, chunk)
+            bad = [c for c in lost if not np.array_equal(got[c], chunks[c])]
+            if bad:
+                raise AssertionError(f"config #{config}: decode of {lost} "
+                                     f"rebuilt {bad} wrong")
+        lost0 = patterns[0]
+        have0 = {i: c for i, c in enumerate(chunks) if i not in lost0}
+        dec = time_ms(lambda h: dev.decode(lost0, h, chunk),
+                      [have0] * TIMED_RUNS)
+        torch.cuda.synchronize()
+        launches = cuda_ec.launch_counts()
+        after = routing_samples(be)
+        routed = {p: after[p] - before[p] for p in after}
+        if routed["host"]:
+            raise AssertionError(f"config #{config}: {routed['host']} "
+                                 f"calls served by the host")
+        # gf_encode runs the byte matrices; packets stay plain PyTorch
+        kernel = encode[0].kind
+        want_launches = dict.fromkeys(launches, 0)
+        if kernel == "bytes":
+            want_launches["gf_encode"] = routed["dev"]
+        if launches != want_launches or not routed["dev"]:
+            raise AssertionError(f"config #{config}: launches {launches}, "
+                                 f"want {want_launches} (device calls "
+                                 f"{routed['dev']})")
+        for name, k_ in launches.items():
+            tally[name] += k_
+        host_enc = host_ms(lambda: host.encode_chunks(data), PLUGIN_HOST_RUNS)
+        host_dec = host_ms(lambda: host.decode(lost0, have0, chunk),
+                           PLUGIN_HOST_RUNS)
+        row = dict(
+            config=config, plugin=plugin, profile=profile,
+            shape=list(data.shape), chunk_bytes=chunk, kind=kernel,
+            patterns=len(patterns), tolerance=0, max_abs_err=0,
+            encode={"ms": enc["ms"], "b2b_ms": enc["b2b_ms"],
+                    "gbs": data.nbytes / enc["ms"] / 1e6},
+            decode={"lost": lost0, "ms": dec["ms"], "b2b_ms": dec["b2b_ms"],
+                    "gbs": k * chunk / dec["ms"] / 1e6,
+                    "route": "dev" if dev.decode_shapes(
+                        chunk, [len(lost0)]) else "host"},
+            host_oracle_cpu_ms={"encode": host_enc, "decode": host_dec,
+                                "note": "host clock, this machine's CPU, "
+                                "native AVX2 GF kernels"},
+            routed_calls=routed, launches=launches, warm_s=warm_s,
+            note="ms: CUDA events around the codec call (numpy in and "
+            f"out: H2D, kernel, D2H), median of {TIMED_RUNS}",
+            elapsed_s=time.perf_counter() - t_start)
+        emit("plugin_codec", **row)
+        rows.append(row)
+    return rows
+
+
+# -- phase 17: the five configs as EC pools of phase 14's process cluster --
+
+PLUGIN_POOL_PG_NUM = 16
+PLUGIN_POOL_OBJECTS = 16             # 4 MiB each, per pool
+PLUGIN_POOL_SAMPLE = 8               # objects whose shards are checked
+PLUGIN_POOL_TAG = 40                 # object_payload tags: 40, 42, ...
+PLUGIN_QUIET_S = 3.0                 # counters still: nothing rebuilding
+PLUGIN_POOL_TIMEOUT = 180.0          # a new pool clean
+
+
+def plugin_shard_digests(codec, sinfo, payload: bytes) -> dict:
+    """{shard: (sha256, crc, crc_prefix, size)} of `payload`'s shard files
+    and HashInfo as the host oracle `codec` encodes them at `sinfo`."""
+    from ceph_tpu_torch.ops import crc32c as crc_mod
+    from ceph_tpu_torch.osd import ecutil
+    shards, _crcs = ecutil.encode_object_ex(codec, sinfo, payload)
+    full = len(payload) // sinfo.stripe_width * sinfo.chunk_size
+    out = {}
+    for i, mv in enumerate(shards):
+        b = bytes(mv)
+        out[i] = (hashlib.sha256(b).hexdigest(), crc_mod.crc32c(0, b),
+                  crc_mod.crc32c(0, b[:full]), len(payload))
+    return out
+
+
+def settle(cluster, live, timeout: float) -> float:
+    """Until every PG of every pool is active+clean and the OSDs'
+    counters stood still for PLUGIN_QUIET_S (a restarted OSD's shards
+    rebuilt: the PG map reads clean once its members are up); returns
+    the seconds until the last change."""
+    t0 = time.perf_counter()
+    for pool in cluster.osdmap().pools.values():
+        cluster.wait_clean(pool.id, pool.pg_num, timeout)
+    last, changed = osd_counters(cluster, live), time.perf_counter()
+    while time.perf_counter() - changed < PLUGIN_QUIET_S:
+        if time.perf_counter() - t0 > timeout:
+            raise TimeoutError(f"counters still moving after {timeout} s")
+        time.sleep(0.25)
+        now = osd_counters(cluster, live)
+        if now != last:
+            last, changed = now, time.perf_counter()
+    return changed - t0
+
+
+def shards_landed(cluster, osd: int, osdmap, pool_id: int, lost: dict,
+                  shard_bytes: int, size: int) -> int:
+    """How many of `lost` ({object index: shard}) osd.<osd> holds whole:
+    the shard file at `shard_bytes` with a HashInfo of the object's
+    `size` (`dump_shard` over its admin socket)."""
+    from ceph_tpu_torch.utils.admin_socket import admin_command
+    n = 0
+    for i, shard in lost.items():
+        pgid = osdmap.object_to_pg(pool_id, f"obj{i}")
+        got = admin_command(cluster.asok(f"osd.{osd}"), {
+            "prefix": "dump_shard", "pgid": str(pgid),
+            "oid": f"obj{i}.s{shard}"})
+        n += (got.get("bytes") == shard_bytes
+              and (got.get("hinfo") or {}).get("size") == size)
+    return n
+
+
+def pool_routing(cluster, osds, profile_name: str) -> dict:
+    """The pool codec's measured routing summed over the OSDs' perf
+    dumps: device and host samples, and each OSD's crossover_bytes."""
+    out = {"dev": 0, "host": 0, "crossover_bytes": {}}
+    for i in osds:
+        codec = cluster.perf(f"osd.{i}")["ec_codecs"].get(profile_name, {})
+        for key, ent in codec.get("routing", {}).items():
+            path = key.split(":")[0]
+            if path in ("dev", "host"):
+                out[path] += ent["n"]
+        if "crossover_bytes" in codec:
+            out["crossover_bytes"][i] = codec["crossover_bytes"]
+    return out
+
+
+def phase_plugin_pools(cluster, rng, live: list, out_osd: int,
+                       down_osd: int) -> dict:
+    """Phase 17 (see the module docstring) on phase 14's cluster, `live`
+    its OSDs up; `out_osd` phase 14's killed and out-marked OSD,
+    `down_osd` phase 15's killed one."""
+    from ceph_tpu_torch.erasure.registry import registry
+    from ceph_tpu_torch.osd.backend_ec import pool_stripe_info
+    t_start = time.perf_counter()
+    n, nbytes = PLUGIN_POOL_OBJECTS, CLUSTER_OBJECT_BYTES
+    grace = float(CLUSTER_CONF["osd_heartbeat_grace"])
+    setup = {}
+    # phases 14-15's victims started again (their MemStores empty) and
+    # the out one marked in: 13 OSDs up and in, phases 14-15's pools
+    # backfilled onto them before the new pools exist
+    t0 = time.perf_counter()
+    names = [f"osd.{v}" for v in (down_osd, out_osd)]
+    for name in names:
+        cluster.spawn(name, cluster.args[name])
+    cluster.wait_up(names, DAEMONS_BOOT_TIMEOUT)
+    setup["boot_s"] = time.perf_counter() - t0
+    live += [down_osd, out_osd]
+    cli(cluster, "osd", "in", str(out_osd))
+    cluster.wait_osds(lambda m: all(m.is_up(i) and m.is_in(i)
+                                    for i in range(CLUSTER_OSDS)),
+                      CLUSTER_TIMEOUT, "every OSD up and in")
+    setup["rebuilt_s"] = settle(cluster, live, CLUSTER_RECOVERY_TIMEOUT)
+    setup["restart_s"] = time.perf_counter() - t0
+    # profiles and pools through the CLI, one pool at a time: every OSD
+    # maps all PGs of all pools again at each new map, under its PG lock,
+    # and a burst of ten maps starved the heartbeats into a mass mark-
+    # down.  Each profile is validated by instantiating its plugin in the
+    # mon, which must not touch the card
+    t0 = time.perf_counter()
+    mib_before = card_used_mib()
+    pools = []
+    for config, plugin, profile, _shape in PLUGIN_CONFIGS:
+        name = f"plugin{config}"
+        cli(cluster, "osd", "erasure-code-profile", "set", name,
+            f"plugin={plugin}", *(f"{k}={v}" for k, v in profile.items()))
+        cli(cluster, "osd", "pool", "create", name,
+            str(PLUGIN_POOL_PG_NUM), str(PLUGIN_POOL_PG_NUM), "erasure",
+            name)
+        cluster.wait_clean(cluster.osdmap().pool_by_name(name).id,
+                           PLUGIN_POOL_PG_NUM, PLUGIN_POOL_TIMEOUT)
+        pools.append((config, plugin, profile, name))
+    osdmap = cluster.osdmap()
+    setup["pools_s"] = time.perf_counter() - t0
+    setup["mon_mgr_card_mib"] = card_used_mib() - mib_before
+    if setup["mon_mgr_card_mib"] > 0:
+        raise AssertionError(f"card memory rose {setup['mon_mgr_card_mib']}"
+                             f" MiB while the mons validated the profiles")
+    emit("plugin_pools_setup", osds=len(live), restarted=[down_osd, out_osd],
+         pools=[p[3] for p in pools], pg_num=PLUGIN_POOL_PG_NUM,
+         objects=n, object_bytes=nbytes, clients=CLUSTER_CLIENTS, **setup,
+         elapsed_s=time.perf_counter() - t_start)
+
+    out = {"setup": setup, "pools": {}}
+    sample = sorted(int(i) for i in rng.choice(n, PLUGIN_POOL_SAMPLE,
+                                               replace=False))
+    items = [(f"obj{i}", i, nbytes, 0) for i in range(n)]
+    clients = ClientProcs(cluster.conf_path, pools[0][3], CLUSTER_CLIENTS,
+                          SEED)
+    try:
+        want: dict = {}
+        shard_sizes: dict = {}
+        for j, (config, plugin, profile, name) in enumerate(pools):
+            t_pool = time.perf_counter()
+            tag = PLUGIN_POOL_TAG + 2 * j
+            pool = osdmap.pool_by_name(name)
+            oracle = registry.factory(plugin, {**profile, "backend": "host"})
+            sinfo = pool_stripe_info(osdmap, pool, oracle)
+            shard = shard_sizes[name] = \
+                sinfo.logical_size_to_shard_size(nbytes)
+            warm = ec_warm(cluster, live, name, (shard,))
+            # -- window: writes, read back -----------------------------------
+            before = osd_counters(cluster, live)
+            w_wall, w_lat = clients.run("write", items, tag=tag, pool=name)
+            d_write = counters_delta(before, osd_counters(cluster, live))
+            r_wall, r_lat = clients.run("read", items, tag=tag, pool=name)
+            want[name] = {i: plugin_shard_digests(
+                oracle, sinfo, object_payload(SEED, i, nbytes, tag))
+                for i in sample}
+            bad = {i: b for i in sample if (b := doors_shards(
+                cluster, osdmap, pool.id, f"obj{i}", want[name][i]))}
+            if bad:
+                raise AssertionError(f"{name}: shards != host oracle {bad}")
+            if config in (1, 2) and \
+                    window_launches(d_write).get("gf_encode", 0) < 1:
+                raise AssertionError(f"{name}: no gf_encode launch in the "
+                                     f"write window: {d_write}")
+            # -- window: deep scrub ------------------------------------------
+            before = osd_counters(cluster, live)
+            s_wall, results = deep_scrub_procs(cluster, pool.id,
+                                               CLUSTER_TIMEOUT)
+            d_scrub = counters_delta(before, osd_counters(cluster, live))
+            bad = {p: r for p, r in results.items() if r["inconsistent"]}
+            crc = window_launches(d_scrub)
+            if bad or not (crc.get("crc32c_segments") and
+                           crc.get("crc32c_chain")):
+                raise AssertionError(f"{name} deep scrub: {bad}, "
+                                     f"launches {crc}")
+            row = dict(
+                config=config, plugin=plugin, profile=profile,
+                stripe_unit=sinfo.chunk_size, shard_bytes=shard,
+                ec_warm=warm,
+                write_gbs=n * nbytes / w_wall / 1e9,
+                write_lat_ms=percentiles_ms(w_lat),
+                read_gbs=n * nbytes / r_wall / 1e9,
+                read_lat_ms=percentiles_ms(r_lat),
+                shards_checked_objects=len(sample),
+                write_launches=window_launches(d_write),
+                write_host_dispatches=d_write["host_dispatches"],
+                scrub_s=s_wall, scrub_checked=sum(
+                    r["checked"] for r in results.values()),
+                scrub_launches=crc,
+                scrub_host_dispatches=d_scrub["host_dispatches"],
+                routing=pool_routing(cluster, live, name),
+                elapsed_s=time.perf_counter() - t_pool)
+            emit("plugin_pool", pool=name, **row)
+            out["pools"][name] = row
+
+        # -- a process death: degraded reads, restart, recovery ----------------
+        victim = sorted(live)[int(rng.integers(len(live)))]
+        lost = {name: lost_shards(osdmap, osdmap.pool_by_name(name).id,
+                                  victim, n) for *_x, name in pools}
+        down_s = kill_and_wait_down(cluster, victim, grace)
+        live.remove(victim)
+        degraded = {}
+        for j, (*_x, name) in enumerate(pools):
+            before = osd_counters(cluster, live)
+            wall, lat = clients.run("read", items,
+                                    tag=PLUGIN_POOL_TAG + 2 * j, pool=name)
+            d = counters_delta(before, osd_counters(cluster, live))
+            degraded[name] = {"gbs": n * nbytes / wall / 1e9,
+                              "lat_ms": percentiles_ms(lat),
+                              "launches": window_launches(d),
+                              "host_dispatches": d["host_dispatches"]}
+            out["pools"][name]["degraded_read"] = degraded[name]
+        before = osd_counters(cluster, live)
+        t0 = time.perf_counter()
+        cluster.start_daemon(f"osd.{victim}", None)
+        live.append(victim)
+        # recovery: until the restarted OSD holds every shard it lost
+        while sum(shards_landed(
+                cluster, victim, osdmap, osdmap.pool_by_name(name).id,
+                lost[name], shard_sizes[name], nbytes)
+                for *_x, name in pools) < sum(len(v) for v in lost.values()):
+            if time.perf_counter() - t0 > CLUSTER_RECOVERY_TIMEOUT:
+                raise TimeoutError(f"osd.{victim}: lost shards not rebuilt")
+            time.sleep(0.25)
+        recovery_s = time.perf_counter() - t0
+        all_s = settle(cluster, live, CLUSTER_RECOVERY_TIMEOUT)
+        d_rec = counters_delta(before, osd_counters(cluster, live))
+        # the restarted OSD's shards rebuilt: the sample against the
+        # oracle again
+        t0 = time.perf_counter()
+        osdmap = cluster.osdmap()
+        for *_x, name in pools:
+            pool_id = osdmap.pool_by_name(name).id
+            for i in sample:
+                while bad := doors_shards(cluster, osdmap, pool_id,
+                                          f"obj{i}", want[name][i]):
+                    if time.perf_counter() - t0 > CLUSTER_RECOVERY_TIMEOUT:
+                        raise AssertionError(f"{name} obj{i}: shards {bad} "
+                                             f"!= host oracle after "
+                                             f"recovery")
+                    time.sleep(0.25)
+        step = dict(victim=victim, marked_down_s=down_s,
+                    lost_shards={k: len(v) for k, v in lost.items()},
+                    degraded=degraded, recovery_s=recovery_s,
+                    all_pools_settled_s=all_s,
+                    routing_after={name: pool_routing(cluster, live, name)
+                                   for *_x, name in pools},
+                    recovery_launches=window_launches(d_rec),
+                    recovery_pushes=d_rec["recovery_pushes"],
+                    elapsed_s=time.perf_counter() - t_start)
+        emit("plugin_pools_recovery", **step)
+        out.update(step)
+    finally:
+        clients.close()
     return out
 
 
@@ -3919,10 +4423,15 @@ def main(argv=None) -> int:
                     help="build the kernels and run phase 13 alone (the "
                     "reference's device-path test files on the card)")
     ap.add_argument("--daemons-only", action="store_true",
-                    help="build the kernels and run phases 14 and 15 alone "
-                    "(phase 9's cluster as mon, OSD and mgr processes, "
-                    "then phase 10's doors on it with the MDS and RGW as "
-                    "processes)")
+                    help="build the kernels and run phases 14, 15 and 17 "
+                    "alone (phase 9's cluster as mon, OSD and mgr "
+                    "processes, phase 10's doors on it with the MDS and "
+                    "RGW as processes, then BASELINE.md configs #1-#5 as "
+                    "EC pools on it)")
+    ap.add_argument("--plugins-only", action="store_true",
+                    help="build the kernels and run phase 16 alone "
+                    "(BASELINE.md configs #1-#5 through the port's "
+                    "jerasure, isa, shec and lrc codecs)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3965,6 +4474,13 @@ def main(argv=None) -> int:
         run_daemons_phase(np.random.default_rng(SEED))
         print(ident, flush=True)
         return 0
+    if args.plugins_only:
+        counts = dict.fromkeys(cuda_ec.launches, 0)
+        phase_plugins(np.random.default_rng([SEED, 16]), registry, cuda_ec,
+                      counts)
+        emit("plugins_only_launches", launches=counts)
+        print(ident, flush=True)
+        return 0
 
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
@@ -3994,14 +4510,17 @@ def main(argv=None) -> int:
                             if not isinstance(v, dict)})
     ec_pipeline.get().stop()
     payloads = written = None
-    step, cluster = phase_cluster(rng, cuda_ec, ec_pipeline, hbm_cache,
-                                  native, crc_mod, device, counts)
-    doors10 = phase_doors(cluster, step["victim"], rng, cuda_ec,
-                          ec_pipeline, hbm_cache, native, crc_mod, device,
-                          counts)
+    step = phase_cluster(rng, cuda_ec, ec_pipeline, hbm_cache, native,
+                         crc_mod, device, counts)
+    doors10 = phase_doors(step["victim"], rng, cuda_ec, ec_pipeline,
+                          hbm_cache, native, crc_mod, device, counts)
     phase_mesh(rng, device, cuda_ec, ec_kernels, gf, registry, native,
                crc_mod, ec_pipeline, ecutil, counts)
     phase_tools(rng, cuda_ec, ec_pipeline, device, counts)
+    # its own generator: phases 14-17 draw their victims from `rng` as
+    # they did before phase 16 existed
+    phase_plugins(np.random.default_rng([SEED, 16]), registry, cuda_ec,
+                  counts)
     by_source = {src: sum(n for name, n in counts.items()
                           if name.startswith(src)) for src in cuda_ec.SOURCES}
     emit("main_path_launches", launches=counts, by_source=by_source)
