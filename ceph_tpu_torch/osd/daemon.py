@@ -42,7 +42,7 @@ from .messages import (MOSDECSubOpRead, MOSDECSubOpReadReply,
                        MOSDOpReply, MOSDPing, MOSDRepOp, MOSDRepOpReply,
                        MPGInfo, MPGPush, MPGPushReply, MOSDScrub,
                        MWatchNotifyAck, sender_id)
-from .osdmap import OSDMap, PgId
+from .osdmap import OSDMap, PGMapping, PgId
 from .pg import HINFO_KEY, PG, VER_KEY
 from .pglog import _parse_ev
 
@@ -93,6 +93,13 @@ class OSDDaemon(Dispatcher, RecoveryService, ScrubService):
 
         self.pgs: dict[PgId, PG] = {}
         self.pg_lock = threading.RLock()
+        # every pg's (up, acting) under self.osdmap, and under the map
+        # before it; each new map re-runs CRUSH only where it must
+        self._pg_mapping = PGMapping()
+        self._pg_map: dict[PgId, tuple] = {}
+        self._pg_map_before: dict[PgId, tuple] = {}
+        self._map_lock = threading.Lock()
+        self._hb_lock = threading.Lock()        # guards _hb_last
         # guards the recovery dedup sets ONLY.  Peering queues
         # backfills while holding pg.lock, and the map thread takes
         # pg_lock -> pg.lock, so the dedup guard must be its own lock:
@@ -163,6 +170,7 @@ class OSDDaemon(Dispatcher, RecoveryService, ScrubService):
         self._rpc_tid = itertools.count(1)
         self._rpc: dict = {}
         self._rpc_async: dict[int, Callable] = {}
+        self._rpc_async_timers: dict = {}       # tid -> its timeout
         self._rpc_cv = threading.Condition()
         self._hb_last: dict[int, float] = {}
         self._hb_timer = None
@@ -604,6 +612,26 @@ class OSDDaemon(Dispatcher, RecoveryService, ScrubService):
     # -- map handling ------------------------------------------------------
 
     def _on_osdmap(self, osdmap: OSDMap) -> None:
+        # one map at a time: the mapping is computed before pg_lock is
+        # taken, and an older one must never be published after a newer
+        # (the heartbeat tick waits on this lock too)
+        with self._map_lock:
+            t0 = self.clock.now()
+            try:
+                self._apply_osdmap(osdmap)
+            finally:
+                # the messenger's one thread runs this: ping replies
+                # wait behind it, so the time it took is time in which
+                # no peer could be heard, not a peer's silence.  A reply
+                # heard meanwhile is credited nothing
+                now = self.clock.now()
+                with self._hb_lock:
+                    for peer, last in self._hb_last.items():
+                        if last < t0:
+                            self._hb_last[peer] = min(now,
+                                                      last + now - t0)
+
+    def _apply_osdmap(self, osdmap: OSDMap) -> None:
         # wrongly marked down (e.g. we stalled past the heartbeat
         # grace): the HEARTBEAT tick re-asserts boot (start_boot on
         # "map says i am down").  Deliberately NOT instant here: an
@@ -635,13 +663,17 @@ class OSDDaemon(Dispatcher, RecoveryService, ScrubService):
                 # pass (a no-op scan when nothing is misplaced)
                 residual.append(pool_id)
             self._pool_pg_nums[pool_id] = pool.pg_num
+        # CRUSH runs here, outside pg_lock (get_pg and the heartbeat
+        # tick take it), and only for pgs whose placement inputs the
+        # map changed
+        mapping = self._pg_mapping.update(osdmap)
         with self.pg_lock:
             # publish the map INSIDE the lock: get_pg (also under
             # pg_lock) must never see the new map before the loop
             # below has marked fresh split children split_pending
             self.osdmap = osdmap
-            for pgid in osdmap.all_pgs():
-                up, acting = osdmap.pg_to_up_acting_osds(pgid)
+            self._pg_map_before, self._pg_map = self._pg_map, mapping
+            for pgid, (up, acting) in mapping.items():
                 members = {o for o in list(up) + list(acting)
                            if o != ITEM_NONE}
                 mine = self.whoami in members
@@ -659,7 +691,9 @@ class OSDDaemon(Dispatcher, RecoveryService, ScrubService):
                             # up-only member with no parent data has
                             # nothing to wait for — it backfills)
                             pg.split_pending = True
-                if pg is not None:
+                # after the map is published: a new interval takes its
+                # epoch from self.osdmap
+                if pg is not None and (pg.up != up or pg.acting != acting):
                     pg.update_acting(up, acting)
             # collected AFTER the creation loop: a restarted daemon
             # only instantiates (reloads) its pgs in the loop above
@@ -701,8 +735,8 @@ class OSDDaemon(Dispatcher, RecoveryService, ScrubService):
     def get_pg(self, pgid: PgId) -> PG | None:
         with self.pg_lock:
             pg = self.pgs.get(pgid)
-            if pg is None and pgid.pool in self.osdmap.pools:
-                up, acting = self.osdmap.pg_to_up_acting_osds(pgid)
+            if pg is None and pgid in self._pg_map:
+                up, acting = self._pg_map[pgid]
                 # up-but-not-acting members instantiate too: a CRUSH
                 # target of a pg_temp-pinned pg must exist to receive
                 # its backfill before the pin is released
@@ -712,6 +746,19 @@ class OSDDaemon(Dispatcher, RecoveryService, ScrubService):
                     pg = self.pgs[pgid] = PG(self, pgid)
                     pg.update_acting(up, acting)
             return pg
+
+    def fresh_copy_complete(self, pgid: PgId) -> bool:
+        """True when a fresh (empty) copy of `pgid` made now is the
+        pg's complete initial state: this daemon watched the pool come
+        to life, and the pg is new to the map being published (the
+        first map this daemon mapped it in, in which the pool or the
+        split child was born).  A copy made later, when a remap after a
+        mark-out or a return brings us into a pg that already took
+        writes, holds none of them: it must not vote its empty log as a
+        complete head (an EC head vote would count it) before it is
+        backfilled.  Caller holds pg_lock."""
+        return (self.witnessed_pool_birth(pgid.pool)
+                and pgid not in self._pg_map_before)
 
     def witnessed_pool_birth(self, pool_id: int) -> bool:
         """True when this daemon watched `pool_id` come to life (its
@@ -856,11 +903,21 @@ class OSDDaemon(Dispatcher, RecoveryService, ScrubService):
         with self._rpc_cv:
             self._rpc_async[tid] = done
         self.send_osd(osd_id, msg)
-        self.clock.timer(timeout, lambda: self._rpc_async_timeout(tid))
+        # the reply cancels its timeout: on a real clock each timer is
+        # a thread, and a burst of maps peers hundreds of pgs at once;
+        # left to run out, their timers woke together seconds later
+        timer = self.clock.timer(timeout,
+                                 lambda: self._rpc_async_timeout(tid))
+        with self._rpc_cv:
+            if tid in self._rpc_async:
+                self._rpc_async_timers[tid], timer = timer, None
+        if timer is not None:
+            timer.cancel()                  # answered already
 
     def _rpc_async_timeout(self, tid: int) -> None:
         with self._rpc_cv:
             done = self._rpc_async.pop(tid, None)
+            self._rpc_async_timers.pop(tid, None)
         if done is not None:
             done(None)
 
@@ -870,9 +927,12 @@ class OSDDaemon(Dispatcher, RecoveryService, ScrubService):
             return
         with self._rpc_cv:
             done = self._rpc_async.pop(tid, None)
+            timer = self._rpc_async_timers.pop(tid, None)
             if tid in self._rpc:
                 self._rpc[tid] = msg
                 self._rpc_cv.notify_all()
+        if timer is not None:
+            timer.cancel()
         if done is not None:
             done(msg)
 
@@ -1170,6 +1230,12 @@ class OSDDaemon(Dispatcher, RecoveryService, ScrubService):
             float(self.conf.osd_heartbeat_interval), self._heartbeat)
 
     def _heartbeat(self) -> None:
+        # a map being handled holds the messenger's one thread, so no
+        # ping reply reaches us meanwhile: the tick waits for it (as it
+        # waited behind pg_lock when maps were mapped under that lock)
+        # rather than read its own deafness as its peers' silence
+        with self._map_lock:
+            pass
         now = self.clock.now()
         grace = float(self.conf.osd_heartbeat_grace)
         self._ticks += 1
@@ -1271,14 +1337,16 @@ class OSDDaemon(Dispatcher, RecoveryService, ScrubService):
             if not info.up:
                 # stop tracking while down: a stale timestamp would
                 # trigger an instant false failure report on re-boot
-                self._hb_last.pop(osd_id, None)
+                with self._hb_lock:
+                    self._hb_last.pop(osd_id, None)
                 continue
             self.send_osd(osd_id, MOSDPing(op="ping", stamp=now,
                                            epoch=self.osdmap.epoch,
                                            pgid="0.0"))
             # seed on first ping so a peer that NEVER answers still
             # exceeds grace eventually (map says up, socket says no)
-            last = self._hb_last.setdefault(osd_id, now)
+            with self._hb_lock:
+                last = self._hb_last.setdefault(osd_id, now)
             if now - last > grace:
                 self.log.warn("osd.%d silent for %.0fs, reporting",
                               osd_id, now - last)
@@ -1390,7 +1458,8 @@ class OSDDaemon(Dispatcher, RecoveryService, ScrubService):
                 pgid="0.0"))
         else:
             peer = int(msg.src.split(".")[1])
-            self._hb_last[peer] = self.clock.now()
+            with self._hb_lock:
+                self._hb_last[peer] = self.clock.now()
 
     # -- peering / recovery service ----------------------------------------
 
@@ -1580,15 +1649,21 @@ class OSDDaemon(Dispatcher, RecoveryService, ScrubService):
         elif msg.op == "activate":
             pg.handle_activate(int(msg.les))
         elif msg.op == "backfill_done":
-            pg.handle_backfill_done(msg.entries, tuple(msg.tail))
+            pg.handle_backfill_done(msg.entries, tuple(msg.tail),
+                                    msg.missing)
         elif msg.op == "rewind":
             pg.rewind_to(tuple(msg.rewind_to))
         elif msg.op == "request_peering":
             # an incomplete replica is asking to be made whole (fast
             # bounce: no interval change, so nothing else would ever
-            # re-peer it).  queue_backfill dedups per (pg, target),
-            # so repeated nudges while the backfill runs are cheap.
-            if pg.is_primary:
+            # re-peer it).  While a backfill of it runs, that backfill
+            # is making it whole: a round per nudge would only ask
+            # every member again, and under load their answers time
+            # out into "unknown" peers that the round backfills too
+            asker = int(msg.src.split(".")[1])
+            with self.backfill_lock:
+                busy = (pg.pgid, asker) in self._backfills_active
+            if pg.is_primary and not busy:
                 self.queue_peering(pg.pgid)
         elif msg.op == "rebuild_me":
             # an EC shard noticed it skipped a superseded sub-op and

@@ -105,7 +105,9 @@ class MPGInfo(Message):
       activate        — les (epoch): primary activated this interval;
                         members stamp last_epoch_started
       backfill_start / backfill_progress {watermark} /
-      backfill_done {entries, tail} — the last_backfill lifecycle
+      backfill_done {entries, tail, missing} — the last_backfill
+                        lifecycle (missing: oid -> ev the primary could
+                        not rebuild on the target)
       scan_range / scanned_range, push_delete, pull, fetch_obj,
       request_peering, rebuild_me, ec_omap, shard_scan — recovery RPCs
     """

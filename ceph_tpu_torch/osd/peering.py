@@ -67,15 +67,17 @@ class Peering:
             peers = [o for o in self.acting_live()
                      if o != self.osd.whoami]
             interval_at = self.interval_epoch
+            asked_at = self._backfills_done
         # collection is async: queries fan out concurrently and
         # _peering_done is queued through op_wq — the worker (and
         # pg.lock) are NOT held while peers respond.  The interval is
         # captured so a round delayed past a map change cannot
         # activate the pg with stale peers (each new interval queues
-        # its own round).
+        # its own round); so is the count of backfills finished, so
+        # that an answer older than one of them is known as such.
         self.osd.pg_collect_info(
             self.pgid, peers,
-            lambda infos: self._peering_done(infos, interval_at))
+            lambda infos: self._peering_done(infos, interval_at, asked_at))
 
     def get_info(self) -> dict:
         """Peering info: log bounds only — O(1) in object count (the
@@ -178,7 +180,8 @@ class Peering:
             self.set_last_epoch_started(int(les))
 
     def _peering_done(self, infos: dict[int, dict],
-                      interval_at: int | None = None) -> None:
+                      interval_at: int | None = None,
+                      asked_at: int | None = None) -> None:
         """infos: osd_id -> get_info() dict from each live peer."""
         with self.lock:
             if not self.is_primary:
@@ -289,6 +292,7 @@ class Peering:
             # divergence, or backfill every peer
             n_delta = n_backfill = 0
             divergent: list[int] = []
+            stale: list[int] = []
             for osd_id, info in infos.items():
                 if info.get("unknown") and \
                         getattr(self, "_unknown_retries", 0) < 6:
@@ -308,6 +312,15 @@ class Peering:
                 delta = None if peer_lu is None else \
                     self.pglog.entries_since(
                         min(peer_lu, self.pglog.head))
+                if delta is None and info.get("backfilling") and \
+                        asked_at is not None and \
+                        self._backfilled.get(osd_id, -1) > asked_at:
+                    # its backfill ended after this round asked: the
+                    # answer is stale, and marking the peer incomplete
+                    # again would backfill it again.  A fresh round
+                    # (one, below) hears it complete
+                    stale.append(osd_id)
+                    continue
                 if delta is None:
                     # unknown / mid-backfill / behind the log tail:
                     # the delta is unknowable — backfill, RESUMING
@@ -410,6 +423,9 @@ class Peering:
                             "object(s) to osd.%d", len(heal), osd_id)
                         self._push_log_delta(osd_id, heal)
                     n_delta += 1
+            if stale:
+                self.osd.clock.timer(
+                    0.5, lambda: self.osd.queue_peering(self.pgid))
             if divergent:
                 # the authority proof extends to the acting set: a
                 # divergent peer is rewound before activation, so a
@@ -542,11 +558,15 @@ class Peering:
         with self.lock:
             self.advance_backfill(str(watermark))
 
-    def handle_backfill_done(self, entries: list, tail: tuple) -> None:
+    def handle_backfill_done(self, entries: list, tail: tuple,
+                             missing: dict | None = None) -> None:
         """Backfill finished: adopt the primary's log window so our
         advertised bounds match what we now actually hold (our own
         log only covers ops applied live while restoring).  Entries
-        we applied PAST the snapshot are re-appended on top."""
+        we applied PAST the snapshot are re-appended on top.
+        `missing` names the objects (oid -> version) the primary
+        could not rebuild here: the adopted log claims them, the data
+        is not held."""
         with self.lock:
             tail = tuple(tail)
             adopted = []
@@ -574,6 +594,10 @@ class Peering:
                 elif ev > self.pglog.objects.get(oid, ZERO_EV) and \
                         ev > self.pglog.deleted.get(oid, ZERO_EV):
                     self.pglog.objects[oid] = ev
+            for oid, ev in (missing or {}).items():
+                # (a live write since then put newer data here)
+                if self.pglog.objects.get(oid) == tuple(ev):
+                    self.pglog.missing[oid] = tuple(ev)
             self.version = max(self.version, self.pglog.head[1])
             from ..store.objectstore import StoreError, Transaction
             txn = Transaction()

@@ -109,6 +109,10 @@ class PG(ReplicatedBackend, ECBackend, CacheTier, SnapOps, Peering,
         # primary-side view of each backfilling peer's watermark
         # (drives the op routing above); cleared on interval change
         self.peer_last_backfill: dict[int, str] = {}
+        # backfills of peers this primary finished (a running count),
+        # and peer -> the count when its own finished
+        self._backfills_done = 0
+        self._backfilled: dict[int, int] = {}
         # instantiated with no persisted state this boot (vs reloaded
         # from the store): a split release may adopt the parent's
         # completeness for such a copy
@@ -226,7 +230,7 @@ class PG(ReplicatedBackend, ECBackend, CacheTier, SnapOps, Peering,
             t = Transaction().create_collection(self.cid)
             store.apply_transaction(t)
             self.fresh_copy = True
-            if not self.osd.witnessed_pool_birth(self.pgid.pool):
+            if not self.osd.fresh_copy_complete(self.pgid):
                 # fresh copy of a pg that predates us — a reboot that
                 # lost our store (memstore), or a membership change.
                 # An empty log that then applies live sub-ops would

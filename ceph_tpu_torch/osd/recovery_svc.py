@@ -248,7 +248,7 @@ class RecoveryService:
                     active.discard(key)
                 release()
             state = {"pushed": 0, "failed": False, "rescans": 0,
-                     "resume": resume_from}
+                     "resume": resume_from, "holes": {}}
             if resume_from:
                 self.perf.inc("backfill_resumes")
                 self.log.info("backfill of osd.%d resuming from "
@@ -337,9 +337,11 @@ class RecoveryService:
                 if not self._ec_rebuild(pgid, oid, ev,
                                         [(shard, target)],
                                         retry=False):
-                    # sources busy (concurrent write): the re-scan
-                    # below picks this object up again
+                    # sources busy (concurrent write), or fewer than k
+                    # left (unfound): the re-scan below picks this
+                    # object up again
                     state["failed"] = True
+                    state["holes"][oid] = ev
             else:
                 self._push_object_inline(pg, target, oid, ev)
         for oid, tv in theirs.items():
@@ -370,28 +372,37 @@ class RecoveryService:
             # again (version compares skip everything already landed)
             # rather than marking a peer with holes complete
             state["failed"] = False
+            state["holes"] = {}
             state["rescans"] += 1
             self.log.info("backfill of osd.%d rescanning (%d pushes "
                           "so far)", target, state["pushed"])
             self.recovery_wq.queue(pgid, self._backfill_round, pgid, target,
                              state.get("resume", ""), interval_at,
                              release, state)
-        elif state["failed"]:
-            # persistently undecodable sources: give up this pass and
-            # let a later peering round retry from scratch
-            self.log.warn("backfill of osd.%d abandoned after %d "
-                          "rescans", target, state["rescans"])
-            release()
         else:
             # hand the peer our log window so its advertised bounds
-            # match what it now holds, and clear its incomplete flag
+            # match what it now holds, and clear its incomplete flag.
+            # Objects that every rescan failed to rebuild (no k shards
+            # at their version: unfound) enter its missing set, as
+            # upstream's missing/unfound sets hold them; another pass
+            # over the whole pg would not find their shards either
+            holes = state["holes"] if state["failed"] else {}
+            if holes:
+                self.log.warn("backfill of osd.%d complete but for %d "
+                              "unfound object(s) after %d rescans",
+                              target, len(holes), state["rescans"])
             with pg.lock:
                 snap = list(pg.pglog.entries)
                 tail = pg.pglog.tail
                 pg.peer_last_backfill.pop(target, None)
             self.send_osd(target, MPGInfo(
                 op="backfill_done", pgid=str(pgid), entries=snap,
-                tail=tail, epoch=self.osdmap.epoch))
+                tail=tail, missing=holes, epoch=self.osdmap.epoch))
+            with pg.lock:
+                # after the send: a round that asked before this point
+                # may have heard the peer still backfilling
+                pg._backfills_done += 1
+                pg._backfilled[target] = pg._backfills_done
             self.log.info("backfill of osd.%d complete (%d pushes)",
                           target, state["pushed"])
             release()

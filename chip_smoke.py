@@ -66,8 +66,9 @@ every batch shape the windows reach, three counted windows run:
      must then sit rebuilt by recovery on its new holder, equal to the
      lost bytes (no scrub repair: a shard left unrebuilt fails the phase).
 
-Phase 10 drives the front doors on a fresh cluster of phase 9's shape
-(3 mons, 13 MemStore OSDs, the one phase 9 killed marked out): an EC
+Phase 10 drives the front doors on phase 9's own cluster (3 mons, 13
+MemStore OSDs, the one phase 9 killed marked out), each setup step timed
+and failed past 60 s: an EC
 base pool "doors" (phase 9's code with host_cutover 1, the 4 KiB unit,
 pg_num 32) behind a replicated writeback cache tier "doors-hot" (a hit
 set, target_max_objects 8), a replicated CephFS metadata pool, one MDS
@@ -220,10 +221,12 @@ CPU.  `--plugins-only` runs this phase alone.
 Phase 17 runs the same five configs as EC pools of phase 14's cluster,
 after phase 15 and before the teardown: phase 15's killed OSD and phase
 14's out-marked one started again (their MemStores empty) and marked in,
-every pool clean on 13 OSDs; each profile set and its pool (pg_num 16,
-the default 4 KiB unit) created with the port's ceph CLI, the card's
-memory.used unchanged across it (the mons instantiate each plugin to
-validate its profile); then pool by pool: `ec warm` on every OSD, 16
+every pool clean on 13 OSDs; the five profiles and their pools (pg_num
+16, the default 4 KiB unit) created back to back with the port's ceph
+CLI, a burst of maps, and the osdmap polled from the first command until
+every pool is clean: no OSD may be marked down in that window; the
+card's memory.used unchanged across it (the mons instantiate each plugin
+to validate its profile); then pool by pool: `ec warm` on every OSD, 16
 seeded 4 MiB write_full from 8 client processes (one set, which
 switches pools), read back byte-exact, every shard file and HashInfo of
 8 sampled objects (`dump_shard`) against the host oracle of that
@@ -649,9 +652,12 @@ def pipe_delta(ec_pipeline, before: dict) -> dict:
              "arena_uploads", "replans")}
 
 
-def launches_must_equal(cuda_ec, tally, expect: dict, what: str) -> dict:
-    """Counts read just after a counted window (zeroed just before it)."""
-    got = cuda_ec.launch_counts()
+def launches_must_equal(cuda_ec, tally, expect: dict, what: str,
+                        got: dict | None = None) -> dict:
+    """Counts read just after a counted window (zeroed just before it),
+    or `got`, read by the caller."""
+    if got is None:
+        got = cuda_ec.launch_counts()
     if got != expect:
         raise AssertionError(f"{what}: kernel launches {got}, want {expect}")
     for name, n in got.items():
@@ -1019,14 +1025,46 @@ def percentiles_ms(lat) -> dict:
             "p99": float(np.percentile(a, 99))}
 
 
+def cluster_window_open(cuda_ec, ec_pipeline) -> dict:
+    """Open a counted window of the cluster phase where nothing is in
+    flight (see cluster_window): zero the launch counts, and return the
+    pipeline's stats to close the window against.  A dispatch launched
+    before the zeroing but collected after it would read as a dispatch
+    without its launch."""
+    torch.cuda.synchronize()
+    pipe = ec_pipeline.get()
+    end = time.monotonic() + 60.0
+    while True:
+        pipe.flush(max(0.0, end - time.monotonic()))
+        cuda_ec.reset_launches()
+        before = ec_pipeline.stats()
+        pipe.flush(max(0.0, end - time.monotonic()))
+        if not any(cuda_ec.launch_counts().values()) and \
+                ec_pipeline.stats()["dispatches"] == before["dispatches"] \
+                or time.monotonic() > end:
+            return before
+
+
 def cluster_window(cuda_ec, ec_pipeline, tally, before: dict,
                    what: str, need_dispatch: bool = True) -> dict:
     """Close a counted window of the cluster phase: each kernel entry
     point launched exactly once per device dispatch of its kind, at
     least one device dispatch (unless `need_dispatch` is False), and no
-    stripe batch served by the host."""
+    stripe batch served by the host.  The window closes where nothing is
+    in flight: a dispatch counts when its results are collected, its
+    launch when it is issued, so work still running in the background
+    (a remapped member's backfill, a role audit, the tier agent) would
+    read as a launch without its dispatch."""
     torch.cuda.synchronize()
-    after = ec_pipeline.stats()
+    pipe = ec_pipeline.get()
+    end = time.monotonic() + 60.0
+    while True:
+        pipe.flush(max(0.0, end - time.monotonic()))
+        got, after = cuda_ec.launch_counts(), ec_pipeline.stats()
+        pipe.flush(max(0.0, end - time.monotonic()))
+        if (cuda_ec.launch_counts(), ec_pipeline.stats()["dispatches"]) \
+                == (got, after["dispatches"]) or time.monotonic() > end:
+            break
     d = {k: after[k] - before[k] for k in (
         "dispatches", "dev_dispatches", "host_dispatches",
         "dev_dispatches_enc", "dev_dispatches_dec", "dev_dispatches_crc",
@@ -1036,7 +1074,7 @@ def cluster_window(cuda_ec, ec_pipeline, tally, before: dict,
         "gf_encode_crc": d["dev_dispatches_enc"],
         "crc32c_segments": d["dev_dispatches_crc"],
         "crc32c_chain": d["dev_dispatches_enc"] + d["dev_dispatches_crc"]},
-        what)
+        what, got)
     if d["host_dispatches"] or (need_dispatch and not d["dev_dispatches"]):
         raise AssertionError(f"{what} left the card: {d}")
     d["stripes_per_dispatch"] = d["stripes"] / max(1, d["dispatches"])
@@ -1335,9 +1373,7 @@ def phase_cluster(rng, cuda_ec, ec_pipeline, hbm_cache, native, crc_mod,
         emit("cluster_boot", **out)
 
         # -- window 1: writes, reads, appends ------------------------------
-        torch.cuda.synchronize()
-        cuda_ec.reset_launches()
-        before = ec_pipeline.stats()
+        before = cluster_window_open(cuda_ec, ec_pipeline)
         prof = torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA])
         with prof:
@@ -1390,9 +1426,7 @@ def phase_cluster(rng, cuda_ec, ec_pipeline, hbm_cache, native, crc_mod,
         # folds its CRCs on the host from the entry (phase 7 checks
         # that path): cleared, every shard goes through the CRC kernels
         hbm_cache.get().clear()
-        torch.cuda.synchronize()
-        cuda_ec.reset_launches()
-        before = ec_pipeline.stats()
+        before = cluster_window_open(cuda_ec, ec_pipeline)
         t0 = time.perf_counter()
         results = scrub_all(cluster, pool_id)
         s_wall = time.perf_counter() - t0
@@ -1441,9 +1475,7 @@ def phase_cluster(rng, cuda_ec, ec_pipeline, hbm_cache, native, crc_mod,
                 lost[i] = (shard, bytes(cluster.osds[victim].store.read(
                     f"pg_{pg}", f"{oid}.s{shard}")))
         hbm_cache.get().clear()
-        torch.cuda.synchronize()
-        cuda_ec.reset_launches()
-        before = ec_pipeline.stats()
+        before = cluster_window_open(cuda_ec, ec_pipeline)
         cluster.kill_osd(victim)
         cluster.mark_osd_down(victim)
         cluster.wait_for_osd_down(victim, 60.0)
@@ -1516,10 +1548,11 @@ def phase_cluster(rng, cuda_ec, ec_pipeline, hbm_cache, native, crc_mod,
         if step["codecs_degraded"]:
             raise AssertionError("an OSD's codec degraded to the host")
         out.update(step)
-        return out
-    finally:
+        return out, cluster
+    except BaseException:
         cluster.stop()
         ec_pipeline.get().stop()
+        raise
 
 
 # Phase 10: the front doors (S3, RBD, CephFS) over a writeback cache
@@ -1546,6 +1579,7 @@ RBD_CLIENTS, RBD_IMAGE_BYTES, RBD_ORDER = 2, 16 << 20, 22
 FS_CLIENTS, FS_FILES, FS_FILE_BYTES = 2, 2, 8 << 20
 DOORS_SAMPLE = 16
 DOORS_TIMEOUT = 300.0
+DOORS_SETUP_STEP_S = 60.0                 # each setup step, or the run fails
 
 
 def s3_request(port: int, method: str, path: str, data: bytes = b""):
@@ -1617,11 +1651,12 @@ def wait_ticking(cluster, pred, timeout: float, what: str) -> float:
     return time.perf_counter() - t0
 
 
-def mon_command_ok(cluster, admin, cmd: dict) -> int:
+def mon_command_ok(cluster, admin, cmd: dict,
+                   timeout: float = CLUSTER_TIMEOUT) -> int:
     """A mon command that must succeed; retried while the mons answer
     ETIMEDOUT or EAGAIN (a paxos round still busy with the new pools).
     Returns the retries."""
-    end = time.monotonic() + CLUSTER_TIMEOUT
+    end = time.monotonic() + timeout
     retries = 0
     while True:
         rv, msg, _ = admin.mon_command(cmd)
@@ -1822,16 +1857,10 @@ class Doors:
                 raise AssertionError(f"{f"/file{i}"}: size {size}")
 
 
-def phase_doors(out_osd, rng, cuda_ec, ec_pipeline, hbm_cache, native,
-                crc_mod, device, tally):
-    """Phase 10 on a fresh cluster of phase 9's shape, `out_osd` (phase
-    9's killed OSD) marked out.  Not on phase 9's own cluster: there,
-    after its windows, the in-process mons' paxos rounds ran slow (the
-    tier commands took 62-101 s against 10 s on a fresh cluster, and
-    once more than 10 minutes)."""
-    from ceph_tpu_torch.vstart import MiniCluster
-    cluster = MiniCluster(num_mons=CLUSTER_MONS, num_osds=CLUSTER_OSDS,
-                          conf=cluster_conf())
+def phase_doors(cluster, out_osd, rng, cuda_ec, ec_pipeline, hbm_cache,
+                native, crc_mod, device, tally):
+    """Phase 10 on phase 9's cluster, `out_osd` its OSD killed and
+    marked out; stops the cluster."""
     try:
         return doors_windows(cluster, out_osd, rng, cuda_ec, ec_pipeline,
                              hbm_cache, native, crc_mod, device, tally)
@@ -1847,9 +1876,7 @@ def doors_windows(cluster, out_osd, rng, cuda_ec, ec_pipeline, hbm_cache,
 
     t_start = time.perf_counter()
     setup = {}                   # seconds of each setup step
-    cluster.start(timeout=120.0)
-    cluster.mark_osd_out(out_osd)
-    setup["boot_s"] = time.perf_counter() - t_start
+    maps = {}                    # the leader's osdmap epochs of each
     hbm_cache.get().clear()
     admin = cluster.client("client.doors_admin")
     setup["first_health"] = first_health(
@@ -1858,43 +1885,55 @@ def doors_windows(cluster, out_osd, rng, cuda_ec, ec_pipeline, hbm_cache,
         raise ValueError("the agent would keep an object in each tier PG")
 
     def step(name: str, fn) -> None:
+        """One setup step on the aged cluster, failed past
+        DOORS_SETUP_STEP_S (the waits inside are bounded by it too)."""
+        epoch = cluster.leader().osdmon.osdmap.epoch
         t0 = time.perf_counter()
         fn()
-        setup[f"{name}_s"] = time.perf_counter() - t0
+        setup[f"{name}_s"] = took = time.perf_counter() - t0
+        maps[name] = cluster.leader().osdmon.osdmap.epoch - epoch
+        if took > DOORS_SETUP_STEP_S:
+            raise AssertionError(f"setup step {name} took {took:.1f} s on "
+                                 f"phase 9's cluster: {setup}")
 
     def pools():
         admin.create_ec_pool(DOORS_POOL, DOORS_PROFILE_NAME, DOORS_PROFILE,
                              pg_num=DOORS_PG_NUM)
         admin.create_pool(DOORS_HOT, pg_num=DOORS_PG_NUM)
         admin.create_pool(DOORS_META, pg_num=DOORS_META_PG_NUM)
-        cluster.wait_for_clean(CLUSTER_TIMEOUT)
+        cluster.wait_for_clean(DOORS_SETUP_STEP_S)
 
     settings = {"target_max_objects": str(DOORS_TARGET_MAX_OBJECTS),
                 **DOORS_HIT_SET}
 
-    def tier():
-        for cmd in [{"prefix": "osd tier add", "pool": DOORS_POOL,
-                     "tierpool": DOORS_HOT},
-                    {"prefix": "osd tier cache-mode", "pool": DOORS_HOT,
-                     "mode": "writeback"},
-                    {"prefix": "osd tier set-overlay", "pool": DOORS_POOL,
-                     "overlaypool": DOORS_HOT}] + [
-                    {"prefix": "osd pool set", "pool": DOORS_HOT, "var": k,
-                     "val": v} for k, v in settings.items()]:
+    def command(cmd: dict):
+        def run():
             setup["mon_retries"] = setup.get("mon_retries", 0) + \
-                mon_command_ok(cluster, admin, cmd)
+                mon_command_ok(cluster, admin, cmd, DOORS_SETUP_STEP_S)
+        return run
 
     gws = []
     step("pools", pools)
     base_id = admin.open_ioctx(DOORS_POOL).pool_id
     hot_id = admin.open_ioctx(DOORS_HOT).pool_id
-    step("tier", tier)
-    step("daemons", lambda: (
-        cluster.start_mds("a", metadata_pool=DOORS_META,
-                          data_pool=DOORS_POOL),
-        gws.append(cluster.start_rgw(access_key=DOORS_ACCESS,
-                                     secret_key=DOORS_SECRET,
-                                     data_pool=DOORS_POOL))))
+    step("tier_add", command({"prefix": "osd tier add", "pool": DOORS_POOL,
+                              "tierpool": DOORS_HOT}))
+    step("cache_mode", command({"prefix": "osd tier cache-mode",
+                                "pool": DOORS_HOT, "mode": "writeback"}))
+    step("set_overlay", command({"prefix": "osd tier set-overlay",
+                                 "pool": DOORS_POOL,
+                                 "overlaypool": DOORS_HOT}))
+    for k, v in settings.items():
+        step(f"set_{k}", command({"prefix": "osd pool set",
+                                  "pool": DOORS_HOT, "var": k, "val": v}))
+    step("mds", lambda: cluster.start_mds(
+        "a", metadata_pool=DOORS_META, data_pool=DOORS_POOL))
+    step("rgw", lambda: gws.append(cluster.start_rgw(
+        access_key=DOORS_ACCESS, secret_key=DOORS_SECRET,
+        data_pool=DOORS_POOL)))
+    emit("doors_setup_steps", steps_s={k: v for k, v in setup.items()
+                                       if k.endswith("_s")},
+         maps=maps, limit_s=DOORS_SETUP_STEP_S, gpu=gpu_identity())
     gw = gws[0]
     warm_s = doors_warm(cluster, base_id, ec_pipeline, device)
     osd = next(iter(cluster.osds.values()))
@@ -1922,9 +1961,7 @@ def doors_windows(cluster, out_osd, rng, cuda_ec, ec_pipeline, hbm_cache,
             raise AssertionError("an OSD's codec degraded to the host")
 
     # -- window 1: flush -----------------------------------------------
-    torch.cuda.synchronize()
-    cuda_ec.reset_launches()
-    before = ec_pipeline.stats()
+    before = cluster_window_open(cuda_ec, ec_pipeline)
     prof = torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CUDA])
     t0 = time.perf_counter()
@@ -1958,9 +1995,7 @@ def doors_windows(cluster, out_osd, rng, cuda_ec, ec_pipeline, hbm_cache,
     # -- window 2: promote ---------------------------------------------
     evict_s = wait_ticking(cluster, evicted, DOORS_TIMEOUT, "tier evict")
     hbm_cache.get().clear()
-    torch.cuda.synchronize()
-    cuda_ec.reset_launches()
-    before = ec_pipeline.stats()
+    before = cluster_window_open(cuda_ec, ec_pipeline)
     reads = doors.read("promote")
     d_prom = cluster_window(cuda_ec, ec_pipeline, tally, before,
                             "doors promote", need_dispatch=False)
@@ -1974,9 +2009,7 @@ def doors_windows(cluster, out_osd, rng, cuda_ec, ec_pipeline, hbm_cache,
 
     # -- window 3: deep scrub of the base ------------------------------
     hbm_cache.get().clear()
-    torch.cuda.synchronize()
-    cuda_ec.reset_launches()
-    before = ec_pipeline.stats()
+    before = cluster_window_open(cuda_ec, ec_pipeline)
     t0 = time.perf_counter()
     results = scrub_all(cluster, base_id)
     s_wall = time.perf_counter() - t0
@@ -2006,9 +2039,7 @@ def doors_windows(cluster, out_osd, rng, cuda_ec, ec_pipeline, hbm_cache,
     cluster.wait_for_osd_down(victim, 60.0)
     evict_s = wait_ticking(cluster, evicted, DOORS_TIMEOUT, "tier evict")
     hbm_cache.get().clear()
-    torch.cuda.synchronize()
-    cuda_ec.reset_launches()
-    before = ec_pipeline.stats()
+    before = cluster_window_open(cuda_ec, ec_pipeline)
     reads = doors.read("degraded promote")
     d_deg = cluster_window(cuda_ec, ec_pipeline, tally, before,
                            "doors degraded promote")
@@ -2350,9 +2381,7 @@ def phase_tools(rng, cuda_ec, ec_pipeline, device, tally):
         src, dst = os.path.join(work, "in.bin"), os.path.join(work, "out.bin")
         rng.integers(0, 256, TOOLS_FILE_BYTES, dtype=np.uint8).tofile(src)
 
-        torch.cuda.synchronize()
-        cuda_ec.reset_launches()
-        before = ec_pipeline.stats()
+        before = cluster_window_open(cuda_ec, ec_pipeline)
         base = ["-c", conf, "-p", TOOLS_POOL]
         t0 = time.perf_counter()
         run_cli(rados_cli.main, base + ["put", "file", src])
@@ -4227,6 +4256,56 @@ def pool_routing(cluster, osds, profile_name: str) -> dict:
     return out
 
 
+def burst_pools(cluster, live: list, pools) -> dict:
+    """Each (config, plugin, profile, name) of `pools` as a profile and
+    an EC pool, every command sent back to back; then the mon's osdmap
+    polled until every pool is clean.  Fails if the map shows an OSD of
+    `live` down at any poll, or the cluster log has an OSD marked down
+    after the first command.  Returns the maps of the burst and of the
+    whole window, and the seconds."""
+    t0, stamp = time.perf_counter(), time.time()
+    first = cluster.osdmap().epoch
+    for _config, plugin, profile, name in pools:
+        cli(cluster, "osd", "erasure-code-profile", "set", name,
+            f"plugin={plugin}", *(f"{k}={v}" for k, v in profile.items()))
+        cli(cluster, "osd", "pool", "create", name,
+            str(PLUGIN_POOL_PG_NUM), str(PLUGIN_POOL_PG_NUM), "erasure",
+            name)
+    sent_s = time.perf_counter() - t0
+    burst_maps = cluster.osdmap().epoch - first
+    polls = 0
+    while True:
+        polls += 1
+        osdmap = cluster.osdmap()
+        down = [i for i in live if not osdmap.is_up(i)]
+        if down:
+            raise AssertionError(f"osds {down} marked down in the burst of "
+                                 f"pools, epoch {osdmap.epoch}")
+        rv, out, data = cluster.admin.mon_command({"prefix": "pg dump"})
+        if rv != 0:
+            raise AssertionError(f"pg dump: {rv} {out}")
+        states = json.loads(data)
+        if all(len([st for pgid, st in states.items()
+                    if pgid.split(".")[0] == str(pool.id)
+                    and st.get("state") == "active+clean"])
+               == PLUGIN_POOL_PG_NUM for pool in (
+                   osdmap.pool_by_name(p[3]) for p in pools)):
+            break
+        if time.perf_counter() - t0 > PLUGIN_POOL_TIMEOUT:
+            raise TimeoutError(f"the burst's pools not clean in "
+                               f"{PLUGIN_POOL_TIMEOUT} s")
+        time.sleep(0.25)
+    rv, out, _ = cluster.admin.mon_command({"prefix": "log last",
+                                            "num": 10000})
+    marked = [line for line in out.splitlines()
+              if "marked down" in line and float(line.split()[0]) >= stamp]
+    if rv != 0 or marked:
+        raise AssertionError(f"OSDs marked down in the burst: {rv} {marked}")
+    return {"maps": burst_maps, "window_maps": osdmap.epoch - first,
+            "sent_s": sent_s, "clean_s": time.perf_counter() - t0,
+            "polls": polls}
+
+
 def phase_plugin_pools(cluster, rng, live: list, out_osd: int,
                        down_osd: int) -> dict:
     """Phase 17 (see the module docstring) on phase 14's cluster, `live`
@@ -4254,31 +4333,24 @@ def phase_plugin_pools(cluster, rng, live: list, out_osd: int,
                       CLUSTER_TIMEOUT, "every OSD up and in")
     setup["rebuilt_s"] = settle(cluster, live, CLUSTER_RECOVERY_TIMEOUT)
     setup["restart_s"] = time.perf_counter() - t0
-    # profiles and pools through the CLI, one pool at a time: every OSD
-    # maps all PGs of all pools again at each new map, under its PG lock,
-    # and a burst of ten maps starved the heartbeats into a mass mark-
-    # down.  Each profile is validated by instantiating its plugin in the
-    # mon, which must not touch the card
+    # profiles and pools through the CLI, back to back: a burst of ten
+    # maps, polled until every pool is clean with no OSD marked down.
+    # Each profile is validated by instantiating its plugin in the mon,
+    # which must not touch the card
     t0 = time.perf_counter()
     mib_before = card_used_mib()
-    pools = []
-    for config, plugin, profile, _shape in PLUGIN_CONFIGS:
-        name = f"plugin{config}"
-        cli(cluster, "osd", "erasure-code-profile", "set", name,
-            f"plugin={plugin}", *(f"{k}={v}" for k, v in profile.items()))
-        cli(cluster, "osd", "pool", "create", name,
-            str(PLUGIN_POOL_PG_NUM), str(PLUGIN_POOL_PG_NUM), "erasure",
-            name)
-        cluster.wait_clean(cluster.osdmap().pool_by_name(name).id,
-                           PLUGIN_POOL_PG_NUM, PLUGIN_POOL_TIMEOUT)
-        pools.append((config, plugin, profile, name))
+    pools = [(config, plugin, profile, f"plugin{config}")
+             for config, plugin, profile, _shape in PLUGIN_CONFIGS]
+    burst = burst_pools(cluster, live, pools)
     osdmap = cluster.osdmap()
     setup["pools_s"] = time.perf_counter() - t0
+    setup["burst"] = burst
     setup["mon_mgr_card_mib"] = card_used_mib() - mib_before
     if setup["mon_mgr_card_mib"] > 0:
         raise AssertionError(f"card memory rose {setup['mon_mgr_card_mib']}"
                              f" MiB while the mons validated the profiles")
-    emit("plugin_pools_setup", osds=len(live), restarted=[down_osd, out_osd],
+    emit("plugin_pools_setup", gpu=gpu_identity(), osds=len(live),
+         restarted=[down_osd, out_osd],
          pools=[p[3] for p in pools], pg_num=PLUGIN_POOL_PG_NUM,
          objects=n, object_bytes=nbytes, clients=CLUSTER_CLIENTS, **setup,
          elapsed_s=time.perf_counter() - t_start)
@@ -4510,10 +4582,11 @@ def main(argv=None) -> int:
                             if not isinstance(v, dict)})
     ec_pipeline.get().stop()
     payloads = written = None
-    step = phase_cluster(rng, cuda_ec, ec_pipeline, hbm_cache, native,
-                         crc_mod, device, counts)
-    doors10 = phase_doors(step["victim"], rng, cuda_ec, ec_pipeline,
-                          hbm_cache, native, crc_mod, device, counts)
+    step, cluster = phase_cluster(rng, cuda_ec, ec_pipeline, hbm_cache,
+                                  native, crc_mod, device, counts)
+    doors10 = phase_doors(cluster, step["victim"], rng, cuda_ec,
+                          ec_pipeline, hbm_cache, native, crc_mod, device,
+                          counts)
     phase_mesh(rng, device, cuda_ec, ec_kernels, gf, registry, native,
                crc_mod, ec_pipeline, ecutil, counts)
     phase_tools(rng, cuda_ec, ec_pipeline, device, counts)

@@ -252,6 +252,10 @@ def test_decode_device_error_fails_the_read_with_eio(cluster, io,
     assert ei.value.errno == 5 and calls
     monkeypatch.undo()
     assert io.read("dobj") == payload
+    # the module's cluster goes on: a later test's OSD death could take
+    # a second shard of this one before the role audit rebuilds the
+    # first, and an unfound object's pg never reads clean again
+    io.remove_object("dobj")
 
 
 def test_read_behind_a_gathering_write_waits_for_it(cluster, io,
