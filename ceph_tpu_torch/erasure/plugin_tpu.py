@@ -44,7 +44,7 @@ import numpy as np
 from ..ops import crc32c as crc_mod
 from ..ops import ec_kernels
 from ..ops import pipeline as ec_pipeline
-from ..utils import faults
+from ..utils import faults, optracker
 from ..utils.dout import DoutLogger
 from .interface import ErasureCodeError
 from .matrix_codec import (REP_BYTES, TECHNIQUES, DeviceShape,
@@ -71,7 +71,8 @@ def _wait(fut, what: str, chan, timeout):
     if timeout is None:
         timeout = ec_pipeline.RESULT_TIMEOUT
     try:
-        return fut.result(timeout)
+        with optracker.span("ec.result_wait"):
+            return fut.result(timeout)
     except FuturesTimeout:
         ec_pipeline.get().note_result_timeout()
         lane = getattr(fut, "ec_lane", "no lane yet")

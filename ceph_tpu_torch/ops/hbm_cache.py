@@ -63,6 +63,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from ..utils import optracker
 from .ec_kernels import MeshRows
 
 DEFAULT_CAPACITY = 64 << 20
@@ -401,7 +402,7 @@ class HbmStripeCache:
         producer's store transaction applied, disk and HBM now agree."""
         key = (cid, oid)
         version = tuple(version)
-        with self._lock:
+        with optracker.span("ec.cache_commit"), self._lock:
             ent = self._pending.get(key)
             if ent is None or ent.version != version:
                 return False

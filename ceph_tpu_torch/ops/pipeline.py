@@ -91,6 +91,16 @@ of a shape), a channel the owner routes to the host, and injected
 faults, as in the reference.  A mesh failure degrades to row splits on
 the device lanes, never to the host.
 
+Every thread's work and waits are :func:`~ceph_tpu_torch.utils.optracker.span`
+spans (``ec.window_full`` and ``ec.pick`` on the dispatcher, ``ec.pin_wait``,
+``ec.stage_h2d`` and ``ec.launch`` on a stager, ``ec.event_wait``, ``ec.d2h``,
+``ec.cache_stage`` and ``ec.resolve`` on a collector, ``ec.host_encode``
+wherever the host serves): :meth:`~EcDevicePipeline.stats` reports each
+thread's work, wait and CPU seconds (``threads``) and the spans' totals
+(``span_s``), and each item's phase stamps are totalled per channel kind
+once the item resolves (``phase_s``; the op thread adds ``ec.tail``
+through :meth:`~EcDevicePipeline.note_returned`).
+
 Host batches run inline on the dispatcher thread — single-threaded host
 execution is itself the coalescing backpressure.  Timing recorded per
 dispatch is the *marginal* service time per lane (now minus the later
@@ -110,7 +120,7 @@ import numpy as np
 import torch
 
 from .. import get_device
-from ..utils import copyaudit, faults
+from ..utils import copyaudit, faults, optracker
 from . import hbm_cache
 
 # defaults; daemons override via configure() from their conf
@@ -323,10 +333,10 @@ class _MeshPlane:
 
 class _Item:
     __slots__ = ("arr", "n", "fut", "t", "cache", "tag", "arena",
-                 "no_mesh", "ph")
+                 "no_mesh", "ph", "kind")
 
     def __init__(self, arr: np.ndarray, cache=None, tag=None,
-                 arena=None):
+                 arena=None, kind=None):
         self.arr = arr
         self.n = arr.shape[0]
         self.fut: Future = Future()
@@ -335,12 +345,15 @@ class _Item:
         self.tag = tag              # QoS service class (pool name)
         self.arena = arena          # StagingArena | None
         self.no_mesh = False        # fell off the mesh: row splits only
+        self.kind = kind            # channel kind: the key's first field
         # op-tracing phase stamps (time.monotonic — the span timebase):
-        # submit -> picked (coalesce wait) -> stage0/1 (pinned staging
-        # and upload issue) -> issue -> collect0 (the lane's stream
-        # reached the end of the compute: upload + kernels) -> done
-        # (D2H), or host0/host1 for the host drain; requeues counts
-        # redrains.  Attached to the future as `trace_phases` at resolve.
+        # submit -> picked (coalesce wait) -> queued (handed to a lane's
+        # staging queue) -> stage0/1 (pinned staging and upload issue)
+        # -> issue -> collect0 (the lane's stream reached the end of the
+        # compute: upload + kernels) -> done (D2H), or host0/host1 for
+        # the host drain; requeues counts redrains.  Attached to the
+        # future as `trace_phases` at resolve; the op thread adds
+        # `returned` (optracker.phase_spans reads them).
         self.ph: dict = {"submit": self.t}
 
 
@@ -606,6 +619,17 @@ class EcDevicePipeline:
         self._running = False
         self._threads: list = []
         self._holders = 0                  # daemons holding the lanes
+        # tracing totals, behind their own lock: each pipeline thread's
+        # work / wait / CPU seconds by thread name, and the items' phase
+        # seconds by channel kind, folded in batches from the phase
+        # stamps of resolved items and returned tails (appended without
+        # a lock, as optracker's span totals are)
+        self._tlock = threading.Lock()
+        # name -> [(thread or None, its counter)]: None holds the sums of
+        # the name's threads that have ended
+        self._thread_totals: dict[str, list] = {}
+        self._phase_s: dict[str, dict] = {}
+        self._phases_closed: deque = deque()   # (kind, ph, tail only)
         self._c = {
             "dispatches": 0, "dev_dispatches": 0, "host_dispatches": 0,
             # device dispatches per channel kind (its key's first
@@ -757,6 +781,60 @@ class EcDevicePipeline:
             time.sleep(0.005)
         return False
 
+    # -- tracing totals ----------------------------------------------------
+
+    def _bind_thread(self) -> optracker.ThreadTotals:
+        """Count the calling pipeline thread's spans in a counter of its
+        own, reported under its name: a rebuilt lane's threads take the
+        names of the retired lane's, which may still be draining.  The
+        counters of the name's ended threads fold into one."""
+        me = threading.current_thread()
+        tt = optracker.ThreadTotals()
+        with self._tlock:
+            ents = self._thread_totals.get(me.name, [])
+            live = [(t, c) for t, c in ents
+                    if t is not None and t.is_alive()]
+            ended = [c for t, c in ents if t is None or not t.is_alive()]
+            if ended:
+                live.insert(0, (None, optracker.ThreadTotals.sum(ended)))
+            live.append((me, tt))
+            self._thread_totals[me.name] = live
+        optracker.bind_thread_totals(tt)
+        return tt
+
+    def _close_phases(self, kind, ph: dict, tail: bool) -> None:
+        """Total an item's phases once (`tail` False, at resolve: every
+        phase but the tail) or its tail (`tail` True)."""
+        self._phases_closed.append((kind, ph, tail))
+        if len(self._phases_closed) > optracker.FOLD_AT:
+            self._fold_phases()
+
+    def _fold_phases(self) -> None:
+        with self._tlock:
+            while self._phases_closed:
+                kind, ph, tail = self._phases_closed.popleft()
+                ent = self._phase_s.setdefault(kind, {"items": 0})
+                if not tail:
+                    ent["items"] += 1
+                for name, t0, t1 in optracker.phase_spans(ph):
+                    if (name == "ec.tail") != tail:
+                        continue
+                    tot = ent.get(name)
+                    if tot is None:
+                        ent[name] = {"avgcount": 1, "sum": t1 - t0}
+                    else:
+                        tot["avgcount"] += 1
+                        tot["sum"] += t1 - t0
+
+    def note_returned(self, kind: str, ph: dict | None) -> None:
+        """The op thread has its answer: stamp `returned` into the
+        item's phases (the future's ``trace_phases``) and total its
+        ``ec.tail`` under channel kind `kind`."""
+        if not ph:
+            return
+        ph["returned"] = time.monotonic()
+        self._close_phases(kind, ph, True)
+
     # -- producer side -----------------------------------------------------
 
     def checkout_arena(self, nbytes: int,
@@ -814,7 +892,8 @@ class EcDevicePipeline:
         arr = np.ascontiguousarray(arr, dtype=np.uint8)
         if arr.ndim < 1 or arr.shape[0] == 0:
             raise ValueError(f"empty pipeline submission {arr.shape}")
-        item = _Item(arr, cache=cache, tag=qos, arena=arena)
+        item = _Item(arr, cache=cache, tag=qos, arena=arena,
+                     kind=chan.key[0])
         with self._lock:
             self._ensure_threads()
             self._chans[chan.key] = chan
@@ -854,6 +933,15 @@ class EcDevicePipeline:
                             "lanes": list(mp.lane_indices),
                             "devices": [str(d) for d in mp.devices]}
                            if mp is not None else None)
+        self._fold_phases()
+        with self._tlock:
+            out["threads"] = {
+                name: optracker.ThreadTotals.sum(c for _t, c in ents).dump()
+                for name, ents in self._thread_totals.items()}
+            out["phase_s"] = {kind: {k: dict(v) if isinstance(v, dict)
+                                     else v for k, v in ent.items()}
+                              for kind, ent in self._phase_s.items()}
+        out["span_s"] = optracker.span_totals()
         out["depth"] = self.depth
         out["device_shards"] = self.device_shards or "all"
         out["scrub_weight"] = self.scrub_weight
@@ -964,32 +1052,38 @@ class EcDevicePipeline:
         return all(l.load() >= self.depth for l in lanes)
 
     def _dispatch_loop(self) -> None:
+        tt = self._bind_thread()
         while True:
+            tt.sample()
             with self._lock:
                 while self._running and \
                         not any(self._queues.values()):
                     self._work_cv.wait()
                 if not self._running:
                     return
-                waited = False
-                wait_start = None
+                # one ec.window_full span a hold, as coalesce_waits counts
+                hold = None
                 while self._running and not self._stalled and \
                         self._window_full_locked(time.monotonic()):
-                    waited = True
                     now = time.monotonic()
-                    if wait_start is None:
-                        wait_start = now
-                    elif now - wait_start > STALL_TIMEOUT:
+                    if hold is None:
+                        hold = optracker.span("ec.window_full")
+                        hold.__enter__()
+                    elif now - hold.t0 > STALL_TIMEOUT:
                         self._latch_stall_locked(
                             "every usable lane's window stayed full")
                         break
                     self._fetch_cv.wait(self.coalesce_wait or 0.01)
-                if waited:
+                if hold is not None:
+                    hold.__exit__(None, None, None)
                     self._c["coalesce_waits"] += 1
                 if not self._running:
                     return
+                pick = optracker.span("ec.pick")
+                pick.__enter__()
                 key = self._pick_key()
                 if key is None:
+                    pick.__exit__(None, None, None)
                     if any(self._queues.values()):
                         # every tenant limit-throttled: sleep until the
                         # earliest tag comes due
@@ -1020,6 +1114,7 @@ class EcDevicePipeline:
             except Exception as e:      # never kill the loop
                 self._fail(items, e)
             finally:
+                pick.__exit__(None, None, None)
                 with self._lock:
                     self._busy -= 1
 
@@ -1309,6 +1404,9 @@ class EcDevicePipeline:
                         self._requeue_staged_locked(
                             _Staged(chan, items, [], 0, group))
                     return
+                t_q = time.monotonic()
+                for it in staged.all_items():
+                    it.ph["queued"] = t_q
                 lane.stage_q.append(staged)
                 self._inflight_cv.notify_all()
 
@@ -1479,8 +1577,10 @@ class EcDevicePipeline:
     # -- stagers (one thread per lane: the H2D half of the plane) ----------
 
     def _stage_loop(self, lane: _Lane) -> None:
+        tt = self._bind_thread()
         with lane.context():
             while True:
+                tt.sample()
                 with self._lock:
                     while self._running and lane.alive and \
                             not lane.stage_q:
@@ -1573,7 +1673,8 @@ class EcDevicePipeline:
                 lane.pin_next = (slot + 1) % STAGING_BUFFERS
                 done = lane.pin_events[slot]
                 if done is not None:
-                    done.synchronize()
+                    with optracker.span("ec.pin_wait"):
+                        done.synchronize()
                 buf = lane.pinned[slot]
                 if buf is None or buf.numel() < nbytes:
                     buf = lane.pinned[slot] = torch.empty(
@@ -1592,9 +1693,9 @@ class EcDevicePipeline:
         """Stage one part and launch its device fn on the lane stream."""
         chan = staged.chan
         its = staged.all_items()
-        t_s0 = time.monotonic()
-        dev_arr = self._to_device(staged, next_bucket(staged.S), lane)
-        t_s1 = time.monotonic()
+        with optracker.span("ec.stage_h2d") as sp:
+            dev_arr = self._to_device(staged, next_bucket(staged.S), lane)
+        t_s0, t_s1 = sp.t0, sp.t1
         for it in its:
             # split-group parts stage concurrently; the per-item
             # stamps keep the widest window (min start, max end)
@@ -1604,11 +1705,12 @@ class EcDevicePipeline:
             it.fut.ec_lane = lane.name()
         t0 = time.perf_counter()
         try:
-            out = chan.device_fn(dev_arr, lane.device)
-            event = None
-            if out is not None and lane.stream is not None:
-                event = torch.cuda.Event()
-                event.record(lane.stream)
+            with optracker.span("ec.launch"):
+                out = chan.device_fn(dev_arr, lane.device)
+                event = None
+                if out is not None and lane.stream is not None:
+                    event = torch.cuda.Event()
+                    event.record(lane.stream)
         except Exception as e:
             self._device_failed(chan, lane, staged, e)
             return
@@ -1666,8 +1768,10 @@ class EcDevicePipeline:
     # -- collectors (one thread per lane) ----------------------------------
 
     def _collect_loop(self, lane: _Lane) -> None:
+        tt = self._bind_thread()
         with lane.context():
             while True:
+                tt.sample()
                 with self._lock:
                     while self._running and lane.alive and \
                             not lane.inflight:
@@ -1693,12 +1797,13 @@ class EcDevicePipeline:
         lane = disp.lane
         try:
             if disp.event is not None:
-                disp.event.synchronize()
+                with optracker.span("ec.event_wait"):
+                    disp.event.synchronize()
             # parity-only readback: exactly the channel fn's outputs
             # cross D2H, into fresh pinned tensors on the lane stream
-            t_c0 = time.monotonic()
-            outs = hbm_cache.to_host(disp.out)
-            t_c1 = time.monotonic()
+            with optracker.span("ec.d2h") as sp:
+                outs = hbm_cache.to_host(disp.out)
+            t_c0, t_c1 = sp.t0, sp.t1
         except Exception as e:
             self._device_failed(disp.chan, lane, disp, e)
             return
@@ -1750,14 +1855,16 @@ class EcDevicePipeline:
                 not any(it.cache is not None for it in disp.items):
             return
         off = 0
-        for it in disp.items:
-            if it.cache is not None:
-                rows = slice(off, off + it.n)
-                hbm_cache.get().stage(
-                    it.cache, disp.lane.index,
-                    _owned(disp.dev_in[rows]), _owned(disp.out[0][rows]),
-                    outs[1][rows].copy(), stream=disp.lane.stream)
-            off += it.n
+        with optracker.span("ec.cache_stage"):
+            for it in disp.items:
+                if it.cache is not None:
+                    rows = slice(off, off + it.n)
+                    hbm_cache.get().stage(
+                        it.cache, disp.lane.index,
+                        _owned(disp.dev_in[rows]),
+                        _owned(disp.out[0][rows]),
+                        outs[1][rows].copy(), stream=disp.lane.stream)
+                off += it.n
 
     def _group_part_done(self, disp: _Dispatch, outs: tuple) -> None:
         g = disp.group
@@ -1785,13 +1892,13 @@ class EcDevicePipeline:
     def _run_host(self, chan: PipelineChannel, items: list,
                   batch: np.ndarray) -> None:
         t0 = time.perf_counter()
-        t_h0 = time.monotonic()
         try:
-            outs = tuple(np.asarray(o) for o in chan.host_fn(batch))
+            with optracker.span("ec.host_encode") as sp:
+                outs = tuple(np.asarray(o) for o in chan.host_fn(batch))
         except Exception as e:
             self._fail(items, e)
             return
-        t_h1 = time.monotonic()
+        t_h0, t_h1 = sp.t0, sp.t1
         for it in items:
             it.ph["host0"] = t_h0
             it.ph["host1"] = t_h1
@@ -1805,24 +1912,28 @@ class EcDevicePipeline:
             pass
         self._resolve(items, "host", outs)
 
-    @staticmethod
-    def _resolve(items: list, path: str, outs: tuple) -> None:
-        off = 0
-        for it in items:
-            ar = it.arena
-            if ar is not None and not ar.consumed and not ar.noted:
-                # a pooled arena that no donated mesh upload subsumed
-                # (host, lane or row-split serve): its staging copy is a
-                # host copy after all, noted where a plain buffer's is
-                ar.noted = True
-                copyaudit.note("ec.stage", ar.payload_bytes)
-            sl = tuple(o[off: off + it.n] for o in outs)
-            off += it.n
-            if not it.fut.done():
-                # phase stamps ride the future itself: the producer's
-                # op thread turns them into TrackedOp spans
-                it.fut.trace_phases = dict(it.ph)
-                it.fut.set_result((path, sl))
+    def _resolve(self, items: list, path: str, outs: tuple) -> None:
+        with optracker.span("ec.resolve"):
+            off = 0
+            for it in items:
+                ar = it.arena
+                if ar is not None and not ar.consumed and not ar.noted:
+                    # a pooled arena that no donated mesh upload subsumed
+                    # (host, lane or row-split serve): its staging copy
+                    # is a host copy after all, noted where a plain
+                    # buffer's is
+                    ar.noted = True
+                    copyaudit.note("ec.stage", ar.payload_bytes)
+                sl = tuple(o[off: off + it.n] for o in outs)
+                off += it.n
+                if not it.fut.done():
+                    # phase stamps ride the future itself: the
+                    # producer's op thread turns them into TrackedOp
+                    # spans; their totals count here, once an item
+                    # (it.ph is final: the future gets a copy)
+                    self._close_phases(it.kind, it.ph, False)
+                    it.fut.trace_phases = dict(it.ph)
+                    it.fut.set_result((path, sl))
 
 
 # ---------------------------------------------------------------------------

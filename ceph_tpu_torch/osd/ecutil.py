@@ -18,7 +18,7 @@ import numpy as np
 
 from ..erasure.interface import CHUNK_ALIGN, ErasureCodeError
 from ..ops import crc32c as crc_mod
-from ..utils import copyaudit
+from ..utils import copyaudit, optracker
 from ..utils.bufferlist import as_buffer, iov_of
 
 DEFAULT_STRIPE_UNIT = 4096
@@ -114,33 +114,43 @@ class EncodeHandle:
             # parts path: shards lay out straight from (stripes,
             # parity) — the joined (S, km, L) intermediate never exists
             stripes, parity, stripe_crcs = self._get_parts(timeout)
-            S, k, L = stripes.shape
-            km = k + parity.shape[1]
-            shards = np.empty((km, S, L), dtype=np.uint8)
-            shards[:k] = stripes.transpose(1, 0, 2)
-            shards[k:] = parity.transpose(1, 0, 2)
+            with optracker.span("ec.shard_layout"):
+                S, k, L = stripes.shape
+                km = k + parity.shape[1]
+                shards = np.empty((km, S, L), dtype=np.uint8)
+                shards[:k] = stripes.transpose(1, 0, 2)
+                shards[k:] = parity.transpose(1, 0, 2)
         else:
             allc, stripe_crcs = self._get(timeout)
-            S, km, L = allc.shape
-            shards = np.ascontiguousarray(allc.transpose(1, 0, 2))
+            with optracker.span("ec.shard_layout"):
+                S, km, L = allc.shape
+                shards = np.ascontiguousarray(allc.transpose(1, 0, 2))
         # the shard fan-out above was the arena's last reader: a pooled
         # one goes back for the next mega-write
         arena, self._arena = self._arena, None
         if arena is not None:
             arena.release()
-        # op tracing: turn the pipeline's phase stamps (coalesce wait,
-        # H2D staging, device compute, D2H — or the host drain) into
-        # spans on whatever op this thread is executing; free when
-        # nothing is traced
-        from ..utils import optracker
-        optracker.note_pipeline_phases(
-            getattr(self._src, "trace_phases", None))
         # (km, S*L): the shard-major relayout — ONE copy for all km
         # shard files (audited), rows are views of it
         shards = shards.reshape(km, S * L)
         copyaudit.note("ec.shard_layout", shards.nbytes)
-        return ([memoryview(shards[c]) for c in range(km)],
-                np.asarray(stripe_crcs))
+        out = ([memoryview(shards[c]) for c in range(km)],
+               np.asarray(stripe_crcs))
+        _note_returned("enc", self._src)
+        return out
+
+
+def _note_returned(kind: str, handle) -> None:
+    """Op tracing: the op thread has its answer.  Stamp the pipeline
+    item's return (its ``ec.tail`` closes) and turn its phase stamps
+    (coalesce wait, lane queue, H2D staging, device compute, D2H — or
+    the host drain — and the tail) into spans on whatever op this
+    thread is executing."""
+    ph = getattr(handle, "trace_phases", None)
+    if ph:
+        from ..ops import pipeline as ec_pipeline
+        ec_pipeline.get().note_returned(kind, ph)
+        optracker.note_pipeline_phases(ph)
 
 
 def encode_object_async(codec, sinfo: StripeInfo, payload: bytes,
@@ -176,14 +186,16 @@ def encode_object_async(codec, sinfo: StripeInfo, payload: bytes,
     arena = None
     if hasattr(codec, "encode_stripes_with_crcs_async"):
         from ..ops import pipeline as ec_pipeline
-        arena = ec_pipeline.get().checkout_arena(nbytes, plen)
+        with optracker.span("ec.arena"):
+            arena = ec_pipeline.get().checkout_arena(nbytes, plen)
     buf = arena.buf if arena is not None \
         else np.zeros(nbytes, dtype=np.uint8)
     off = 0
-    for seg in iov_of(payload):
-        n = len(seg)
-        buf[off: off + n] = np.frombuffer(seg, dtype=np.uint8)
-        off += n
+    with optracker.span("ec.stage_copy"):
+        for seg in iov_of(payload):
+            n = len(seg)
+            buf[off: off + n] = np.frombuffer(seg, dtype=np.uint8)
+            off += n
     if arena is None or not arena.pooled:
         copyaudit.note("ec.stage", plen)
         if arena is not None:
@@ -265,11 +277,9 @@ def decode_object(codec, sinfo: StripeInfo, shards: dict[int, bytes],
                         want, present, stack)
                 rebuilt = np.asarray(handle.result())
                 # decode-path phase spans: the rebuild's device window
-                # (coalesce/H2D/compute/D2H or host drain) stamps the
-                # current op
-                from ..utils import optracker
-                optracker.note_pipeline_phases(
-                    getattr(handle, "trace_phases", None))
+                # (coalesce/H2D/compute/D2H or host drain, and the
+                # tail to here) stamps the current op
+                _note_returned("dec", handle)
             else:
                 rebuilt = np.asarray(
                     codec.decode_batch(want, present, stack))

@@ -305,9 +305,15 @@ class LoadGen:
     # span name -> canonical phase bucket for the report breakdown
     PHASE_BUCKETS = {
         "queue": "queue",
-        "ec.coalesce": "device", "ec.stage_h2d": "device",
-        "ec.device_compute": "device", "ec.d2h": "device",
-        "ec.host_encode": "device",
+        "ec.coalesce": "device", "ec.lane_queue": "device",
+        "ec.stage_h2d": "device", "ec.device_compute": "device",
+        "ec.d2h": "device", "ec.host_encode": "device",
+        "ec.tail": "device",
+        # the op thread's own EC work around the pipeline item, and its
+        # wait for it (which the item's phases above cover)
+        "ec.arena": "ec_host", "ec.stage_copy": "ec_host",
+        "ec.shard_layout": "ec_host", "ec.cache_commit": "ec_host",
+        "ec.result_wait": "ec_wait",
         "journal": "journal", "wal": "journal",
         "store_apply": "journal",
         "replica_wait": "replica",

@@ -26,9 +26,9 @@ still materialized on the host:
 
 Every such site calls :func:`note` with the byte count; ``perf dump``
 exposes the totals plus ``host_copies_per_write`` (copies amortized
-over the daemon's write ops), and ``bench.py --smoke`` gates the
-per-write copy count so a copy regression in the hot path fails CI
-loudly instead of silently re-widening the kernel<->e2e gap.
+over the daemon's write ops).  The copy-audit tests hold the per-write
+count, and the benchmark's ``host_copy_bytes_per_byte`` reads the
+write's ``ec.stage`` and ``ec.shard_layout`` bytes.
 
 Counters are process-wide (the write path spans client, messenger, OSD
 and store layers in one process here), monotonic, and cheap: one lock,

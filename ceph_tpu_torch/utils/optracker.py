@@ -27,8 +27,20 @@ osd/OpRequest.cc) grown from an event timeline into a span tracer:
     ``dump_historic_slow_ops``.
   * deep layers attach spans WITHOUT parameter threading: the op shard
     publishes its op via :func:`set_current`, and e.g. the filestore
-    journal calls ``with optracker.span("journal"): ...`` — a no-op
-    when no op is current (internal work, untracked paths).
+    journal calls ``with optracker.span("journal"): ...`` — the op
+    stamp is skipped when no op is current (internal work, untracked
+    paths).
+  * every :func:`span` is also counted where no op is current: its
+    seconds go to a process-wide total for its name (Ceph's time-avg
+    avgcount/sum, :func:`span_totals`) and to the calling thread's
+    *work* or *wait* seconds (:data:`WAIT_SPANS` names the waits) when
+    the thread bound a :class:`ThreadTotals` (the EC pipeline's
+    threads do).  While a torch profiler records, the span is also a
+    range on its thread (a CPU op, not a user annotation), on the
+    device trace's clock; :data:`WORK_SPANS` names the EC path's work
+    spans for a trace reader.  An EC pipeline item's phases run from a
+    stamp on one thread to a stamp on another: :func:`phase_spans`
+    turns the stamps into the spans that tile the item's life.
 
 The **flight recorder** turns "rerun and hope" into a captured
 timeline: daemons register dump callables; when armed (conf
@@ -47,6 +59,9 @@ import threading
 import time
 from collections import deque
 from contextlib import contextmanager
+
+import torch
+from torch.autograd import profiler as _torch_profiler
 
 # ---------------------------------------------------------------------------
 # thread-local current op: how deep layers (stores, ecutil) attach
@@ -76,19 +91,147 @@ def op_context(op: "TrackedOp | None"):
         set_current(prev)
 
 
-@contextmanager
-def span(name: str, **args):
-    """Stamp a span onto the thread's current op around the block; a
-    plain passthrough when nothing is being traced."""
-    op = current()
-    if op is None:
-        yield None
-        return
-    op.span_begin(name, **args)
-    try:
-        yield op
-    finally:
-        op.span_end(name)
+# The EC path's spans, by what the thread does in them.  A wait span is
+# a thread blocked on another thread or on the card; every other span
+# is work.  The op thread's spans are opened in osd/ecutil.py,
+# erasure/plugin_tpu.py and ops/hbm_cache.py, the pipeline threads' in
+# ops/pipeline.py.
+WAIT_SPANS = frozenset({
+    "ec.result_wait",      # op thread: in the pipeline future's result()
+    "ec.window_full",      # dispatcher: every lane's window full
+    "ec.pin_wait",         # stager: a pinned buffer's last upload
+    "ec.event_wait",       # collector: the dispatch's compute event
+})
+WORK_SPANS = (
+    "ec.arena", "ec.stage_copy", "ec.shard_layout", "ec.cache_commit",
+    "ec.pick", "ec.stage_h2d", "ec.launch", "ec.d2h", "ec.cache_stage",
+    "ec.resolve", "ec.host_encode",
+)
+
+_totals_lock = threading.Lock()
+_span_totals: dict[str, list] = {}     # name -> [avgcount, sum]
+# (name, seconds) of closed spans not yet in _span_totals: a close
+# appends here without a lock (a deque's append is atomic), so no span
+# waits on a lock another thread holds across a switch of the
+# interpreter lock; the totals fold in batches
+_closed: deque = deque()
+FOLD_AT = 4096
+
+
+def _fold() -> None:
+    with _totals_lock:
+        while _closed:
+            name, d = _closed.popleft()
+            tot = _span_totals.get(name)
+            if tot is None:
+                _span_totals[name] = [1, d]
+            else:
+                tot[0] += 1
+                tot[1] += d
+
+
+class ThreadTotals:
+    """One thread's seconds in work spans and in wait spans (each
+    second counted once: a span nested in another is taken out of the
+    outer one's), and its CPU seconds as of its last :meth:`sample`.
+    Only the thread that bound it writes it."""
+
+    __slots__ = ("work_s", "wait_s", "cpu_s", "_cpu0", "_inner")
+
+    def __init__(self):
+        self.work_s = 0.0
+        self.wait_s = 0.0
+        self.cpu_s = 0.0
+        self._cpu0 = 0.0
+        self._inner: list = []   # open spans' nested seconds, innermost last
+
+    def sample(self) -> None:
+        """Read the calling (bound) thread's CPU clock."""
+        self.cpu_s = self._cpu0 + time.thread_time()
+
+    @classmethod
+    def sum(cls, counters) -> "ThreadTotals":
+        """One counter holding the seconds of `counters`."""
+        out = cls()
+        for c in counters:
+            out.work_s += c.work_s
+            out.wait_s += c.wait_s
+            out.cpu_s += c.cpu_s
+        return out
+
+    def dump(self) -> dict:
+        return {"work_s": self.work_s, "wait_s": self.wait_s,
+                "cpu_s": self.cpu_s}
+
+
+def bind_thread_totals(totals: ThreadTotals) -> None:
+    """Count the calling thread's spans into `totals` (a counter of its
+    own) from now on."""
+    totals._cpu0 = totals.cpu_s - time.thread_time()
+    _tls.totals = totals
+
+
+def span_totals() -> dict:
+    """{name: {"avgcount", "sum"}} of every span closed in the process."""
+    _fold()
+    with _totals_lock:
+        return {name: {"avgcount": n, "sum": s}
+                for name, (n, s) in _span_totals.items()}
+
+
+class span:
+    """``with span(name, **args):`` — a span of the calling thread
+    around the block: stamped onto the thread's current op (if any),
+    counted in the process-wide total for `name` and in the thread's
+    work or wait seconds (if it bound a ThreadTotals), and a profiler
+    range while a torch profiler records.  After the block, `t0` and
+    `t1` hold its monotonic bounds."""
+
+    __slots__ = ("name", "args", "t0", "t1", "_op", "_rf", "_tt")
+
+    def __init__(self, name: str, **args):
+        self.name = name
+        self.args = args
+        self.t0 = self.t1 = None
+
+    def __enter__(self) -> "span":
+        op = self._op = getattr(_tls, "op", None)
+        if op is not None:
+            op.span_begin(self.name, **self.args)
+        self._rf = None
+        if _torch_profiler._is_profiler_enabled:
+            # a plain CPU op range: a record_function user annotation
+            # would be mirrored onto the device timeline as well, over
+            # the kernels and copies launched inside it
+            self._rf = torch._C._profiler._RecordFunctionFast(self.name)
+            self._rf.__enter__()
+        tt = self._tt = getattr(_tls, "totals", None)
+        if tt is not None:
+            tt._inner.append(0.0)
+        self.t0 = time.monotonic()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.t1 = time.monotonic()
+        d = self.t1 - self.t0
+        if self._rf is not None:
+            self._rf.__exit__(None, None, None)
+        if self._op is not None:
+            self._op.span_end(self.name)
+        _closed.append((self.name, d))
+        if len(_closed) > FOLD_AT:
+            _fold()
+        tt = self._tt
+        if tt is not None:
+            inner = tt._inner
+            own = d - inner.pop()
+            if inner:
+                inner[-1] += d
+            if self.name in WAIT_SPANS:
+                tt.wait_s += own
+            else:
+                tt.work_s += own
+        return False
 
 
 def add_span(name: str, t0: float, t1: float, **args) -> None:
@@ -99,30 +242,45 @@ def add_span(name: str, t0: float, t1: float, **args) -> None:
         op.add_span(name, t0, t1, **args)
 
 
+def phase_spans(ph: dict) -> list:
+    """[(name, t0, t1)] of one EC pipeline item's phase stamps (the
+    ``trace_phases`` dict the pipeline attaches to its futures).  On a
+    lane they tile the item's life from its submit to the return of
+    the op thread's ``result()``: coalesce wait (submit -> picked), the
+    wait in the lane's staging queue (picked -> stage0; ``queued`` marks
+    an item that entered one), pinned staging and upload issue, device
+    compute (issue -> collect0: the launch, the wait in the lane's
+    in-flight window and the stream's work), the D2H fetch, and the
+    tail (done -> returned: cache staging, resolve, the op thread's
+    wake-up and its shard layout).  A host-served item has the host
+    drain in place of the device phases, its tail from host1."""
+    out = []
+
+    def add(name, a, b):
+        t0, t1 = ph.get(a), ph.get(b)
+        if t0 is not None and t1 is not None and t1 > t0:
+            out.append((name, t0, t1))
+
+    add("ec.coalesce", "submit", "picked")
+    if "queued" in ph:
+        add("ec.lane_queue", "picked", "stage0")
+    add("ec.stage_h2d", "stage0", "stage1")
+    add("ec.device_compute", "issue", "collect0")
+    add("ec.d2h", "collect0", "done")
+    add("ec.host_encode", "host0", "host1")
+    add("ec.tail", "host1" if "host1" in ph else "done", "returned")
+    return out
+
+
 def note_pipeline_phases(ph: dict | None) -> None:
-    """Translate one EC pipeline submission's phase stamps (the
-    ``trace_phases`` dict the pipeline attaches to its futures) into
-    spans on the current op: coalesce wait, H2D staging, device
-    compute, D2H fetch — or the host drain — plus a degrade marker
-    when the batch was requeued off a quarantined/failed lane."""
+    """Stamp one EC pipeline submission's phases (:func:`phase_spans`)
+    as spans on the current op, plus a degrade marker when the batch
+    was requeued off a quarantined/failed lane."""
     op = current()
     if op is None or not ph:
         return
-    sub, picked = ph.get("submit"), ph.get("picked")
-    if sub is not None and picked is not None and picked > sub:
-        op.add_span("ec.coalesce", sub, picked)
-    s0, s1 = ph.get("stage0"), ph.get("stage1")
-    if s0 is not None and s1 is not None and s1 > s0:
-        op.add_span("ec.stage_h2d", s0, s1)
-    c0, c1 = ph.get("collect0"), ph.get("done")
-    issue = ph.get("issue")
-    if issue is not None and c0 is not None and c0 > issue:
-        op.add_span("ec.device_compute", issue, c0)
-    if c0 is not None and c1 is not None and c1 > c0:
-        op.add_span("ec.d2h", c0, c1)
-    h0, h1 = ph.get("host0"), ph.get("host1")
-    if h0 is not None and h1 is not None and h1 > h0:
-        op.add_span("ec.host_encode", h0, h1)
+    for name, t0, t1 in phase_spans(ph):
+        op.add_span(name, t0, t1)
     if ph.get("requeues"):
         op.mark_event(f"ec_degraded_requeues:{ph['requeues']}")
 

@@ -735,9 +735,252 @@ def test_traced_write_carries_pipeline_spans():
                                           len(payload))) == payload
     op.finish()
     names = [s["name"] for s in op.dump()["spans"]]
-    for want in ("ec.coalesce", "ec.stage_h2d", "ec.device_compute",
-                 "ec.d2h"):
+    for want in ("ec.coalesce", "ec.lane_queue", "ec.stage_h2d",
+                 "ec.device_compute", "ec.d2h", "ec.tail",
+                 # the op thread's own spans around the item
+                 "ec.arena", "ec.stage_copy", "ec.result_wait",
+                 "ec.shard_layout"):
         assert want in names, names
+
+
+def _tiled(ph: dict) -> list:
+    """An item's phase spans, after checking that they tile its life
+    from submit to the op thread's return: in order, without overlap,
+    summing to within 1% of it."""
+    spans = optracker.phase_spans(ph)
+    for (_n, _a0, a1), (_m, b0, _b1) in zip(spans, spans[1:]):
+        assert b0 >= a1, spans
+    life = ph["returned"] - ph["submit"]
+    total = sum(t1 - t0 for _n, t0, t1 in spans)
+    assert abs(total - life) <= 0.01 * life, (total, life, spans)
+    return [n for n, _t0, _t1 in spans]
+
+
+def test_item_spans_tile_a_coalesced_encode(monkeypatch):
+    """Encodes queued behind a full window coalesce into one dispatch;
+    each item's spans tile its life and reach the op that waits on
+    it."""
+    codec = tregistry.factory("tpu", _profile(4, 2))
+    sinfo = ecutil.StripeInfo(4, 4096)
+    for S in (1, 2, 4):
+        _wait(lambda S=S: codec.backend.fused_fn_if_ready(
+            codec.coding_matrix, (S, 4, 4096)))
+    pipe = ec_pipeline.get()
+    monkeypatch.setattr(pipe, "depth", 1)
+    chan = codec._encode_channel(4096)
+    gate, real = threading.Event(), chan.device_fn
+
+    def held(padded, device=None):
+        gate.wait(20)
+        return real(padded, device)
+
+    monkeypatch.setattr(chan, "device_fn", held)
+    st0 = pipe.stats()
+    payloads = [_rand(40 + i, 4 * 4096).tobytes() for i in range(3)]
+    handles = [ecutil.encode_object_async(codec, sinfo, p)
+               for p in payloads]
+    time.sleep(0.05)
+    gate.set()
+    tracker = optracker.OpTracker(_Clock())
+    for h, p in zip(handles, payloads):
+        op = tracker.create("ec write")
+        with optracker.op_context(op):
+            h.result(20)
+        op.finish()
+        ph = h._src.trace_phases
+        assert _tiled(ph) == ["ec.coalesce", "ec.lane_queue",
+                              "ec.stage_h2d", "ec.device_compute",
+                              "ec.d2h", "ec.tail"]
+        assert {n for n, _a, _b in optracker.phase_spans(ph)} <= \
+            {s["name"] for s in op.dump()["spans"]}
+    st = pipe.stats()
+    # the first may have been picked alone, before the others came
+    assert 1 <= st["dev_dispatches_enc"] - st0["dev_dispatches_enc"] <= 2
+    assert st["ops"] - st0["ops"] == 3
+
+
+def test_item_spans_tile_a_host_served_encode():
+    codec = tregistry.factory("tpu", _profile(4, 2,
+                                              host_cutover=str(1 << 40)))
+    sinfo = ecutil.StripeInfo(4, 65536)
+    before = ec_pipeline.get().stats()["host_dispatches"]
+    h = ecutil.encode_object_async(codec, sinfo,
+                                   _rand(7, 64 * 4 * 65536).tobytes())
+    h.result(20)
+    assert _tiled(h._src.trace_phases) == ["ec.coalesce",
+                                           "ec.host_encode", "ec.tail"]
+    assert ec_pipeline.get().stats()["host_dispatches"] == before + 1
+
+
+def test_item_spans_tile_a_decode():
+    codec = tregistry.factory("tpu", _profile(4, 2))
+    sinfo = ecutil.StripeInfo(4, 4096)
+    payload = _rand(8, 2 * 4 * 4096).tobytes()
+    shards, _ = ecutil.encode_object(codec, sinfo, payload)
+    kept = {i: bytes(s) for i, s in enumerate(shards) if i != 1}
+    rows = codec._decode_rows([1], [0, 2, 3, 4])
+    _wait(lambda: codec.backend.device_fn_if_ready(
+        "bytes", rows, (), (2, 4, 4096)))
+    got = {}
+    real = ecutil._note_returned
+
+    def spy(kind, handle):
+        real(kind, handle)
+        got[kind] = handle.trace_phases
+
+    ecutil._note_returned = spy
+    try:
+        assert bytes(ecutil.decode_object(codec, sinfo, kept,
+                                          len(payload))) == payload
+    finally:
+        ecutil._note_returned = real
+    assert _tiled(got["dec"]) == ["ec.coalesce", "ec.lane_queue",
+                                  "ec.stage_h2d", "ec.device_compute",
+                                  "ec.d2h", "ec.tail"]
+
+
+def test_phase_s_counts_each_item_once():
+    """phase_s adds an item once, where it resolves, whatever its
+    path: a split across two lanes, a whole batch, the host."""
+    host_calls = []
+    pipe = ec_pipeline.EcDevicePipeline(device_shards=2, split_min=1)
+    dev = _plus_one_channel(("enc", "split"), host_calls)
+    host = _plus_one_channel(("enc", "host"), host_calls,
+                             route=lambda n: False)
+    try:
+        futs = [pipe.submit(dev, np.zeros((8, 16), dtype=np.uint8))]
+        futs[0].result(20)
+        futs += [pipe.submit(dev, np.zeros((1, 16), dtype=np.uint8)),
+                 pipe.submit(host, np.zeros((2, 16), dtype=np.uint8))]
+        for f in futs:
+            f.result(20)
+            pipe.note_returned("enc", f.trace_phases)
+        st = pipe.stats()
+        enc = st["phase_s"]["enc"]
+        assert st["split_dispatches"] == 1 and host_calls == [1]
+        assert enc["items"] == 3
+        assert enc["ec.coalesce"]["avgcount"] == 3
+        assert enc["ec.tail"]["avgcount"] == 3
+        assert enc["ec.stage_h2d"]["avgcount"] == 2
+        assert enc["ec.host_encode"]["avgcount"] == 1
+    finally:
+        pipe.stop()
+
+
+def test_coalesce_waits_count_the_window_full_spans(monkeypatch):
+    """Every hold of the dispatcher behind full windows is one
+    ec.window_full span: its count is coalesce_waits."""
+    gate = threading.Event()
+    chan = ec_pipeline.PipelineChannel(
+        key=("t", "held"), host_fn=lambda b: (b,),
+        device_fn=lambda padded, device: (gate.wait(20), (padded,))[1],
+        route=lambda n: True)
+    before = optracker.span_totals().get("ec.window_full",
+                                         {"avgcount": 0})["avgcount"]
+    pipe = ec_pipeline.EcDevicePipeline(depth=1, device_shards=1)
+    try:
+        futs = [pipe.submit(chan, np.zeros((1, 8), dtype=np.uint8))]
+        time.sleep(0.05)
+        futs += [pipe.submit(chan, np.full((1, 8), i, dtype=np.uint8))
+                 for i in range(1, 4)]
+        time.sleep(0.05)
+        gate.set()
+        for f in futs:
+            f.result(20)
+        waits = pipe.stats()["coalesce_waits"]
+    finally:
+        pipe.stop()
+    after = optracker.span_totals()["ec.window_full"]["avgcount"]
+    assert waits >= 1 and after - before == waits
+
+
+def test_pipeline_threads_report_work_wait_and_cpu():
+    """stats() has each pipeline thread's work, wait and CPU seconds and
+    the totals of the spans by name."""
+    chan = _plus_one_channel(("t", "threads"), [])
+    pipe = ec_pipeline.EcDevicePipeline(device_shards=1)
+    try:
+        for i in range(4):
+            pipe.submit(chan, np.full((2, 64), i, dtype=np.uint8)).result(20)
+        st = pipe.stats()
+    finally:
+        pipe.stop()
+    threads = st["threads"]
+    assert {"ec-pipeline-dispatch", "ec-pipeline-stage-0",
+            "ec-pipeline-collect-0"} <= set(threads)
+    for name in ("ec-pipeline-stage-0", "ec-pipeline-collect-0"):
+        assert threads[name]["work_s"] > 0 and threads[name]["cpu_s"] > 0
+    for name in ("ec.pick", "ec.stage_h2d", "ec.launch", "ec.d2h",
+                 "ec.resolve"):
+        assert st["span_s"][name]["avgcount"] >= 4, name
+
+
+def test_threads_of_one_name_keep_their_own_counters():
+    """A rebuilt lane's thread takes the name of a retired lane's thread
+    that may still be draining: each counts in a counter of its own (a
+    shared one lost the old thread's open span), and the name reports
+    their sum, the ended threads' seconds folded in."""
+    pipe = ec_pipeline.EcDevicePipeline(device_shards=1)
+    opened, release, errors = threading.Event(), threading.Event(), []
+
+    def body(name, hold):
+        try:
+            pipe._bind_thread()
+            with optracker.span(name):
+                if hold:
+                    opened.set()
+                    release.wait(20)
+                time.sleep(0.01)
+        except Exception as e:
+            errors.append(e)
+
+    def run(name, hold=False):
+        t = threading.Thread(target=body, args=(name, hold),
+                             name="ec-pipeline-stage-9")
+        t.start()
+        return t
+
+    old = run("ec.stage_h2d", hold=True)
+    assert opened.wait(20)
+    new = run("ec.launch")
+    new.join(20)
+    release.set()
+    old.join(20)
+    third = run("ec.launch")
+    third.join(20)
+    assert not any(t.is_alive() for t in (old, new, third))
+    assert not errors, errors
+    assert len(pipe._thread_totals["ec-pipeline-stage-9"]) == 2
+    assert pipe.stats()["threads"]["ec-pipeline-stage-9"]["work_s"] >= 0.03
+
+
+def test_work_ranges_sit_on_the_stager_and_collector_threads():
+    """Under torch.profiler recording every thread, the pipeline's work
+    spans are ranges on the threads that ran them."""
+    from torch._C._profiler import _ExperimentalConfig
+    chan = _plus_one_channel(("t", "prof"), [])
+    pipe = ec_pipeline.EcDevicePipeline(device_shards=1)
+    pipe.start_lanes()
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU],
+        experimental_config=_ExperimentalConfig(profile_all_threads=True))
+    prof.start()
+    try:
+        with torch.profiler.record_function("test.main"):
+            for i in range(3):
+                pipe.submit(chan, np.full((2, 64), i,
+                                          dtype=np.uint8)).result(20)
+    finally:
+        prof.stop()
+        pipe.stop()
+    threads: dict = {}
+    for e in prof.events():
+        threads.setdefault(e.name, set()).add(e.thread)
+    (main,) = threads["test.main"]
+    stager = threads["ec.stage_h2d"] | threads["ec.launch"]
+    collector = threads["ec.d2h"] | threads["ec.resolve"]
+    assert len(stager) == 1 and len(collector) == 1
+    assert len({main} | stager | collector) == 3
 
 
 def test_launch_counts_are_thread_safe():
